@@ -26,8 +26,30 @@ these phases; any failure exits non-zero:
               the engine's width-1 AR tokens under that rule (positions
               cut reported); the draft kernel launched exactly draft
               passes × (7·layers + 1) times; one verify pass timed;
-7. report   — ``kernels: [...]``, one JSON line per the kernels table,
+4b. paged   — the paged-attention kernels against their plain versions
+              on pools from the model's own K/V after a 128-token chunked
+              prefill (4 rows, one of length 0, out-of-range table
+              entries) and on synthetic 4 × 4096-token pools, T ∈ {1, 4,
+              32}: the packed kernel's decode bit for bit, (acc, m, l) and
+              the merged output within rtol 1e-4 / atol 1e-5; kernel,
+              bound, plain and library µs per shape;
+7. sched    — the paged continuous-batching ``Scheduler`` at full width on
+              phase 6's prompts (4 slots, block 16, chunk 32, fused,
+              overlap, ``attn_kernel="on"``): 32 tokens per request,
+              launches = draft passes × layers (packed kernel) and target
+              passes × layers (plain kernel), first-token logits within a
+              tenth of the logit rms of the Engine's, tokens against
+              phase 6's under the near-tie rule (share printed);
+8. depth 2  — the same at 2 layers (full width): overlap on == off and
+              fused == alternating bit for bit, kernel on == off under the
+              near-tie rule over ≥ 90% of positions, the bf16
+              autoregressive baseline (variant 0) against them;
+9. report   — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
+
+Phases run in the order 1-6, 4b, 7, 8, 9 (4b reads phase 6's prompts);
+phases 1-6 draw their inputs from ``--seed`` as before, the later ones
+from a generator of their own.
 
 Every time is measured on the card in this run (CUDA events, or the host
 clock around work that ends in ``torch.cuda.synchronize()``).
@@ -46,6 +68,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 RTOL, ATOL = 2e-2, 1e-3            # y vs the plain version (different sum order)
+# flash state of the paged kernels vs their plain versions: the same f32
+# steps summed in another order
+PAGED_RTOL, PAGED_ATOL = 1e-4, 1e-5
+BLOCK, CHUNK = 16, 32              # the paged phases' block and chunk sizes
 
 
 def fail(msg: str) -> None:
@@ -251,7 +277,8 @@ def small_phase(seed: int) -> None:
 # Phase 6: the main path
 # ---------------------------------------------------------------------------
 
-def tau_check(spec_tok, ar_tok, margins, tau: float, n: int):
+def tau_check(spec_tok, ar_tok, margins, tau: float, n: int,
+              what: str = "main"):
     """Spec tokens equal AR tokens per row up to the first position whose AR
     top-1/top-2 margin is below ``tau``. Returns (compared, cut)."""
     compared = 0
@@ -259,8 +286,8 @@ def tau_check(spec_tok, ar_tok, margins, tau: float, n: int):
         low = [i for i in range(n) if margins[row, i] < tau]
         stop = low[0] if low else n
         if list(spec_tok[row, :stop]) != list(ar_tok[row, :stop]):
-            fail(f"main: row {row} spec tokens {list(spec_tok[row, :stop])} "
-                 f"!= AR tokens {list(ar_tok[row, :stop])}")
+            fail(f"{what}: row {row} tokens {list(spec_tok[row, :stop])} "
+                 f"!= reference tokens {list(ar_tok[row, :stop])}")
         compared += stop
     return compared, ar_tok.shape[0] * n - compared
 
@@ -351,6 +378,7 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     say(f"[main] draft side of one cycle: {drafts_ms:.1f} ms = the cache's "
         f"draft view {view_ms:.1f} ms + {gamma} draft passes "
         f"{(drafts_ms - view_ms) / gamma:.1f} ms each")
+    lg_cpu = lg.to(torch.float32).cpu()
     del cache, lg
 
     torch.cuda.synchronize()
@@ -405,7 +433,480 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
         f"{b * n / ar_s:.2f} tok/s ({ar_s:.1f} s)")
     say(f"[main] max_memory_allocated during the spec run "
         f"{peak / 2**30:.2f} GiB")
-    return {"launches": launches}
+    return {"launches": launches, "prompt": prompt["tokens"], "lg": lg_cpu,
+            "wide": wide}
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the paged-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def paged_prefill(packed, cfg, cass, prompt, n_new: int):
+    """Chunked prefill of ``prompt`` (B,S) into a packed paged cache through
+    the engine's own wide step, row b on blocks 1+b·MB .. (block 0 is the
+    trash block). Returns (cache, the last prefill logits (B,V))."""
+    import torch
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import engine as E, kvcache as KC
+    from repro_torch.serving.blockpool import blocks_needed
+    b, s = prompt.shape
+    mb = blocks_needed(s + n_new + cass.gamma + 1, BLOCK)
+    cache = KC.init_paged_cache(cfg, cass, b, b * mb + 1, BLOCK, mb,
+                                packed=True, device="cuda")
+    cache["block_table"] = (1 + torch.arange(b * mb, device="cuda")).reshape(
+        b, mb).to(torch.int32)
+    rt = Runtime(cfg=cfg, cass=cass, view="target", attn_kernel="on")
+    valid = torch.full((b,), CHUNK, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        for c0 in range(0, s, CHUNK):
+            last, cache = E.chunk_prefill_step(
+                rt, packed, cache, prompt[:, c0:c0 + CHUNK].contiguous(),
+                valid)
+    return cache, last
+
+
+def _synthetic_store(cfg, cass, nb: int, gen):
+    """A packed pool of random K or V on the card: scale 1/4 (the default
+    book's unary mode); half the rows spread over 2^±4 (delta mode), and a
+    quarter of the rows 70% zeros, so zeros are kept and their exponent 0
+    takes the escape code. A wider spread would make the value sums cancel
+    (2^±20 broke every relative tolerance at T=32)."""
+    import torch
+    from repro_torch.serving import kvcache as KC
+    shape = (nb, BLOCK, cfg.n_kv_heads, cfg.hd)
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.25
+    scale = torch.exp2(torch.randint(-4, 5, shape, generator=gen,
+                                     device="cuda").float())
+    rows = torch.rand((*shape[:-1], 1), generator=gen, device="cuda")
+    x = torch.where(rows < 0.5, x * scale, x)
+    holes = torch.rand(shape, generator=gen, device="cuda") < 0.7
+    x = torch.where((rows > 0.75) & holes, 0.0, x).to(torch.bfloat16)
+    return KC.encode_store(cass, x, cfg.hd, KC.default_kv_codebook("cuda"))
+
+
+def _escapes(spec: dict, keep: int, exp_bits: int) -> int:
+    """Escape codes among the delta-mode rows' exponent codes."""
+    from repro_torch.kernels import paged_attention as PA
+    words = spec["exp_words"].reshape(-1, spec["exp_words"].shape[-1])
+    bits = PA._unpack_bits32(words, keep * exp_bits).reshape(-1, keep,
+                                                             exp_bits)
+    codes = sum(bits[..., i] << i for i in range(exp_bits))
+    delta = spec["exp_mode"].reshape(-1) == 1
+    return int((codes[delta] == (1 << exp_bits) - 1).sum())
+
+
+def _paged_bound_ms(lengths, hkv, g, t, d, row_bytes: float) -> tuple:
+    """(bound ms, bound_by, bytes, ops): each row's ``length`` tokens of K
+    and V read once per kv head, q read, (acc, m, l) written; 4·G·T·D
+    flops per token and head, at the bf16 tensor-core peak."""
+    tokens = sum(int(x) for x in lengths)
+    b = len(lengths)
+    nbytes = (2 * tokens * hkv * row_bytes + b * t * hkv * g * d * 2
+              + b * hkv * g * t * (d + 2) * 4)
+    ops = 4 * tokens * hkv * g * t * d
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations", \
+        nbytes, ops
+
+
+def _library_ms(q, k_pool, v_pool, table, lengths, reps: int) -> float:
+    """One ``scaled_dot_product_attention`` on the rows' gathered bf16 K/V
+    (heads repeated for GQA, a length mask): a yardstick only."""
+    import torch
+    from repro_torch.serving import kvcache as KC
+    b, t, hkv, g, d = q.shape
+    kd = KC.gather_block_leaf(k_pool, table).permute(0, 2, 1, 3)
+    vd = KC.gather_block_leaf(v_pool, table).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(g, dim=1).contiguous()
+    vd = vd.repeat_interleave(g, dim=1).contiguous()
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, d).contiguous()
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    f = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(lambda: f(qh, kd, vd, attn_mask=mask), reps)
+
+
+def paged_phase(packed, cfg, cass, prompt, n_new: int, gen) -> dict:
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models.attention import _suffix_valid
+    from repro_torch.serving import kvcache as KC
+
+    hkv, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    keep = cass.kv_keep(d)
+    kw = dict(d=d, keep=keep, trunc=cass.kv_trunc, exp_bits=cass.exp_bits)
+    scale = d ** -0.5
+    wsm = (keep * (8 - cass.kv_trunc) + 31) // 32
+    we = (keep * cass.exp_bits + 31) // 32
+    packed_row = 4 * (d // 32 + wsm + we) + 2     # bytes per (token, head)
+
+    # pools from the model's own K/V (layer 0) after a 128-token prefill
+    t0 = time.perf_counter()
+    cache, _ = paged_prefill(packed, cfg, cass, prompt, n_new)
+    torch.cuda.synchronize()
+    say(f"[paged] chunked prefill of {tuple(prompt.shape)} into a packed "
+        f"paged cache: {time.perf_counter() - t0:.1f} s")
+    book = cache["book_exp_of_rank"]
+    layer0 = {nm: {z: {k: v[0] for k, v in cache["dec"][0]["e0"][nm][
+        z].items()} for z in ("spec", "verif")} for nm in ("k", "v")}
+    nb = layer0["k"]["spec"]["bitmap"].shape[0]
+    table = cache["block_table"].clone()
+    table[2, 1] = nb + 3                 # read as the trash block
+    table[:, -1] = -1                    # past every row's length
+    s = prompt.shape[1]
+    model_case = {
+        "name": f"model 4x{s}", "table": table,
+        "lengths": torch.tensor([s, s, s - 51, 0], dtype=torch.int32,
+                                device="cuda"),
+        "spec": (layer0["k"]["spec"], layer0["v"]["spec"]),
+        "pools": tuple(KC.read_store(cass, layer0[nm], d, "target",
+                                     (book, cache["book_rank_of_exp"]))
+                       .contiguous() for nm in ("k", "v"))}
+    del cache
+    # synthetic 4 rows x 4096 tokens
+    rows, ctx = 4, 4096
+    mbs = ctx // BLOCK
+    nbs = rows * mbs + 1
+    ks, vs = (_synthetic_store(cfg, cass, nbs, gen) for _ in range(2))
+    dbook = KC.default_kv_codebook("cuda")
+    sbook = torch.zeros(256, dtype=torch.uint8, device="cuda")
+    sbook[:dbook[0].shape[0]] = dbook[0]
+    stable = torch.full((rows, mbs + 1), nbs + 1, dtype=torch.int32,
+                        device="cuda")
+    stable[:, :mbs] = (1 + torch.arange(rows * mbs, device="cuda")).reshape(
+        rows, mbs)
+    synth_case = {
+        "name": f"synthetic {rows}x{ctx}", "table": stable,
+        "lengths": torch.full((rows,), ctx, dtype=torch.int32,
+                              device="cuda"),
+        "spec": (ks["spec"], vs["spec"]), "book": sbook,
+        "pools": tuple(PA.decode_spec_pool_plain(st["spec"], sbook, **kw)
+                       for st in (ks, vs))}
+    model_case["book"] = book
+    del ks, vs
+    # the synthetic bf16 pools are the decoded ones, so the plain kernel
+    # and the library read the same values as the packed kernel
+
+    out = {"max_abs_err": 0.0, "rows": []}
+    escapes = 0
+    for case in (model_case, synth_case):
+        cbook = case["book"]
+        for nm, sp in zip("KV", case["spec"]):
+            got = PA.decode_spec_pool(sp, cbook, **kw)
+            want = PA.decode_spec_pool_plain(sp, cbook, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                bad = (got.view(torch.int16) != want.view(torch.int16)).sum()
+                fail(f"paged: {case['name']} {nm}: decoded pool differs from "
+                     f"the plain decode in {bad.item()} values")
+            modes = sp["exp_mode"].float().mean().item()
+            n_esc = _escapes(sp, keep, cass.exp_bits)
+            escapes += n_esc
+            say(f"[paged] {case['name']} {nm}: decoded pool bit for bit "
+                f"({got.numel()} values, {modes:.0%} delta-mode rows, "
+                f"{n_esc} escape codes)")
+        kspec, vspec = case["spec"]
+        tbl, lens = case["table"], case["lengths"]
+        for t in (1, 4, 32):
+            q = torch.randn((len(lens), t, hkv, g, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            suf_k, suf_v = (torch.randn((len(lens), t, hkv, d), generator=gen,
+                                        device="cuda").to(torch.bfloat16)
+                            for _ in range(2))
+            suf_valid = _suffix_valid(len(lens), t, 0, 0, q.device)
+            runs = {
+                "paged_gqa": (
+                    lambda: PA.paged_gqa(q, *case["pools"], tbl, lens,
+                                         scale=scale),
+                    lambda: PA.paged_gqa_plain(q, *case["pools"], tbl, lens,
+                                               scale=scale),
+                    2 * d),
+                "paged_gqa_packed": (
+                    lambda: PA.paged_gqa_packed(q, kspec, vspec, tbl, lens,
+                                                cbook, scale=scale, **kw),
+                    lambda: PA.paged_gqa_packed_plain(
+                        q, kspec, vspec, tbl, lens, cbook, scale=scale, **kw),
+                    packed_row)}
+            lib_ms = _library_ms(q, *case["pools"], tbl, lens, 20)
+            for name, (kern, plain, row_bytes) in runs.items():
+                got, want = kern(), plain()
+                merged = PA.merge_gqa_suffix(*got, q, suf_k, suf_v,
+                                             suf_valid, scale=scale)
+                merged_p = PA.merge_gqa_suffix(*want, q, suf_k, suf_v,
+                                               suf_valid, scale=scale)
+                torch.cuda.synchronize()
+                err = 0.0
+                for a, b_ in list(zip(got, want)) + [(merged, merged_p)]:
+                    if not torch.isfinite(b_).all() or not torch.allclose(
+                            a, b_, rtol=PAGED_RTOL, atol=PAGED_ATOL):
+                        fail(f"paged: {name} {case['name']} T={t} differs "
+                             f"from its plain version (max abs err "
+                             f"{(a - b_).abs().max().item()})")
+                    err = max(err, (a - b_).abs().max().item())
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                k_ms = cuda_ms(kern, 20)
+                p_ms = cuda_ms(plain, 1)
+                b_ms, by, nbytes, ops = _paged_bound_ms(
+                    lens.tolist(), hkv, g, t, d, row_bytes)
+                out["rows"].append({"kernel": name, "case": case["name"],
+                                    "T": t, "ms": k_ms, "plain_ms": p_ms,
+                                    "bound_ms": b_ms, "bound_by": by,
+                                    "library_ms": lib_ms, "err": err,
+                                    "bytes": nbytes})
+                say(f"[paged] {name:16s} {case['name']:16s} T={t:2d}: kernel "
+                    f"{k_ms * 1e3:.1f} us  bound {b_ms * 1e3:.2f} us ({by}, "
+                    f"{nbytes / 1e6:.2f} MB)  plain {p_ms * 1e3:.1f} us  "
+                    f"library {lib_ms * 1e3:.1f} us; max abs err {err:.3g}")
+        del case["pools"], case["spec"]
+        torch.cuda.empty_cache()
+    if escapes == 0:
+        fail("paged: no escape code among the decoded pools")
+    return out
+
+
+def paged_cycle_ms(packed, cfg, cass, prompt, n_new: int) -> tuple:
+    """One verify pass and the draft side of one cycle (γ passes, packed
+    kernel) on a paged cache after the prompt's chunked prefill. Returns
+    (verify ms, draft-side ms)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving.engine import EngineConfig, _run_drafts
+    cache, last = paged_prefill(packed, cfg, cass, prompt, n_new)
+    rt = Runtime(cfg=cfg, cass=cass, view="target", attn_kernel="on")
+    cur = torch.argmax(last, -1).to(torch.int32)[:, None]
+    with torch.inference_mode():
+        toks = cur.expand(-1, cass.gamma + 1).contiguous()
+        M.forward_decode(rt, packed, toks, cache)             # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.forward_decode(rt, packed, toks, cache)
+        torch.cuda.synchronize()
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _run_drafts(dataclasses.replace(rt, view="target"), packed, cache,
+                    cur, EngineConfig(gamma=cass.gamma))
+        torch.cuda.synchronize()
+        drafts_ms = (time.perf_counter() - t0) * 1e3
+    return verify_ms, drafts_ms
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the paged continuous-batching scheduler
+# ---------------------------------------------------------------------------
+
+def serve_paged(cfg, params, cass, prompt, n: int, speculative=True, **kw):
+    """Every request at arrival 0 through a paged ``Scheduler`` with one
+    slot per request (so every admission takes the wide bucket). Returns
+    (scheduler, tokens (B,n), each request's first-token logits (B,V),
+    wall seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.scheduler import Scheduler
+    b, s = prompt.shape
+    gamma = cass.gamma if cass is not None else 3
+    sched = Scheduler(cfg, params, cass=cass,
+                      ecfg=EngineConfig(gamma=gamma), num_slots=b,
+                      s_max=s + n + gamma + 1, speculative=speculative,
+                      paged=True, block_size=BLOCK, chunk_size=CHUNK,
+                      device="cuda", **kw)
+    first = {}
+    finish = sched._finish_prefill
+
+    def capture(req, last_logits, cycle=None):
+        first[req.rid] = np.array(last_logits, dtype=np.float32)
+        finish(req, last_logits, cycle=cycle)
+
+    sched._finish_prefill = capture
+    reqs = [sched.submit(p, max_new=n) for p in prompt.cpu().numpy()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if len(r.output) != n:
+            fail(f"sched: request {r.rid} delivered {len(r.output)} tokens, "
+                 f"expected {n}")
+    tokens = np.array([r.output for r in reqs], dtype=np.int64)
+    if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        fail(f"sched: tokens out of range: {tokens}")
+    return sched, tokens, np.stack([first[r.rid] for r in reqs]), wall
+
+
+def _logit_gap(a, b) -> tuple:
+    import numpy as np
+    diff = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(np.abs(diff).max()), float(np.sqrt((diff ** 2).mean()))
+
+
+def _main_row(paged: dict, name: str, t: int) -> dict:
+    """Phase 4b's row of ``name`` on the model's pools at width ``t``."""
+    return next(r for r in paged["rows"] if r["kernel"] == name
+                and r["case"].startswith("model") and r["T"] == t)
+
+
+def sched_phase(packed, cfg, cass, args, main: dict, paged: dict,
+                agg: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.kernels import paged_attention as PA
+
+    prompt, n, layers = main["prompt"], args.max_new, cfg.n_layers
+    verify_ms, drafts_ms = paged_cycle_ms(packed, cfg, cass, prompt, n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    DM.draft_matmul.launches = 0
+    PA.paged_gqa.launches = PA.paged_gqa_packed.launches = 0
+    sched, tokens, first, wall = serve_paged(cfg, packed, cass, prompt, n,
+                                             attn_kernel="on")
+    launches = {"draft_matmul": DM.draft_matmul.launches,
+                "paged_gqa": PA.paged_gqa.launches,
+                "paged_gqa_packed": PA.paged_gqa_packed.launches}
+    peak = torch.cuda.max_memory_allocated()
+    st = sched.summary()
+    unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
+    drafts, targets = cass.gamma * unified, st["cycles"]
+    expect = {"draft_matmul": drafts * (7 * layers + 1),
+              "paged_gqa": targets * layers,
+              "paged_gqa_packed": drafts * layers}
+    say(f"[sched] launches {launches}; expected draft passes {drafts} x "
+        f"{7 * layers + 1} / target passes {targets} x {layers} / draft "
+        f"passes x {layers}: {launches == expect}")
+    if launches != expect or min(launches.values()) == 0:
+        fail(f"sched: launches {launches} != expected {expect}")
+    # the first cycle: the wide prefill's last logits against the Engine's
+    # prefill logits at the same tokens
+    lg = main["lg"].numpy()
+    gmax, grms = _logit_gap(first, lg)
+    lrms = float(np.sqrt((lg.astype(np.float64) ** 2).mean()))
+    say(f"[sched] first-token logits vs the Engine's prefill: max abs diff "
+        f"{gmax:.4g}, rms {grms:.4g} (logit rms {lrms:.4g}; limit "
+        f"{0.1 * lrms:.4g})")
+    if not gmax < 0.1 * lrms:
+        fail(f"sched: first-token logits differ from the Engine's by {gmax}")
+    wide_tok, wide_margins = main["wide"]
+    tau = 2.0 * gmax
+    compared, cut = tau_check(tokens, wide_tok, wide_margins, tau, n,
+                              what="sched")
+    b = tokens.shape[0]
+    say(f"[sched] tokens == Engine (== AR at the verify width) on {compared} "
+        f"of {b * n} positions ({compared / (b * n):.1%}) under tau = 2 x the "
+        f"first-token max abs diff = {tau:.3g}, cut {cut}; equal at "
+        f"{int((tokens == wide_tok).sum())} of {b * n}")
+    walls = st["bucket_wall_ms"]
+    uni, chunk = walls.get("unified", {}), walls.get("chunk", {})
+    say(f"[sched] {b} requests x {n} tokens: cycles {st['cycles']} (wide "
+        f"prefill {st['prefill_cycles'] - st['mixed_cycles']}, unified "
+        f"{unified}), acceptance {st['acceptance']:.3f}, "
+        f"{b * n / wall:.2f} tok/s ({wall:.1f} s); TTFT p50 "
+        f"{st['ttft_cycles_p50']:.1f} cycles, ITL p50 "
+        f"{st['itl_cycles_p50']:.1f} cycles / {st['itl_ms_p50']:.1f} ms; "
+        f"step shapes {st['trace_counts']}")
+    kern_ms = {"draft_matmul": cass.gamma * agg["ms"],
+               "paged_gqa_packed": cass.gamma * layers * _main_row(
+                   paged, "paged_gqa_packed", 1)["ms"],
+               "paged_gqa": layers * _main_row(
+                   paged, "paged_gqa", cass.gamma + 1)["ms"]}
+    say(f"[sched] kernels per unified cycle (phase 4 / 4b times x launches): "
+        f"draft_matmul {kern_ms['draft_matmul']:.1f} ms, paged_gqa_packed "
+        f"{kern_ms['paged_gqa_packed'] * 1e3:.0f} us, paged_gqa "
+        f"{kern_ms['paged_gqa'] * 1e3:.0f} us; {sum(kern_ms.values()):.1f} ms "
+        f"in all")
+    say(f"[sched] per cycle: unified step {uni.get('mean_ms', 0.0):.1f} ms "
+        f"(x{uni.get('calls', 0)}), wide prefill "
+        f"{chunk.get('mean_ms', 0.0):.1f} ms (x{chunk.get('calls', 0)}); "
+        f"one verify pass {verify_ms:.1f} ms, draft side {drafts_ms:.1f} ms "
+        f"({cass.gamma} passes, paged cache after the prefill); overlap "
+        f"ratio {st['overlap_ratio']}")
+    return {"launches": launches, "peak": peak, "cycles": st["cycles"],
+            "unified": unified}
+
+
+def depth_phase(args, gen) -> None:
+    """Phase 8: the scheduler's bitwise gates at 2 layers, full width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import top2_margin
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gamma, n = cass.gamma, args.max_new
+    plain = M.init_params(cfg, gen, device="cuda")
+    packed = format_params(plain, cass)
+    prompt = torch.randint(0, cfg.vocab_size, (args.requests,
+                                               args.prompt_len),
+                           generator=gen, device="cuda").to(torch.int32)
+    b, s = prompt.shape
+    # reference trajectory: AR steps at the verify width on a slot cache
+    rt_t = Runtime(cfg=cfg, cass=cass, view="target")
+    cache = KC.init_cache(cfg, cass, b, s + n + gamma + 1, packed=True,
+                          device="cuda")
+    with torch.inference_mode():
+        lg, cache = M.forward_prefill(rt_t, packed, {"tokens": prompt}, cache)
+        lg = lg[:, -1]
+        ref_tok, ref_logits = ar_steps(rt_t, packed, cache, lg, n, gamma + 1)
+        w1_tok, w1_logits = ar_steps(rt_t, packed, cache, lg, gamma + 2, 1)
+        l_v, _ = M.forward_decode(rt_t, packed, w1_tok[:, :gamma + 1], cache)
+    gap1 = (w1_logits[:, 1:] - l_v).abs().max().item()
+    ref_tok = ref_tok.cpu().numpy()
+    margins = top2_margin(ref_logits).cpu().numpy()
+    lg = lg.to(torch.float32).cpu().numpy()
+    del cache, ref_logits, w1_logits, l_v
+
+    runs = {}
+    for name, params, c, spec, kw in (
+            ("on", packed, cass, True, {"attn_kernel": "on"}),
+            ("on, overlap off", packed, cass, True,
+             {"attn_kernel": "on", "overlap": False}),
+            ("on, alternating", packed, cass, True,
+             {"attn_kernel": "on", "fused": False}),
+            ("off", packed, cass, True, {}),
+            ("variant 0 AR, on", plain, None, False, {"attn_kernel": "on"})):
+        _, tokens, first, wall = serve_paged(cfg, params, c, prompt, n,
+                                             speculative=spec, **kw)
+        runs[name] = (tokens, first)
+        say(f"[depth2] {name}: {b} x {n} tokens in {wall:.1f} s")
+    for other in ("on, overlap off", "on, alternating"):
+        same = np.array_equal(runs[other][0], runs["on"][0])
+        say(f"[depth2] {other} == on, bit for bit: {same}")
+        if not same:
+            fail(f"depth2: tokens with {other} differ from the pipelined "
+                 f"fused run")
+    gaps = {k: _logit_gap(v[1], lg)[0] for k, v in runs.items()}
+    onoff = _logit_gap(runs["on"][1], runs["off"][1])[0]
+    tau = 2.0 * max(gaps["on"], gaps["off"], onoff)
+    say(f"[depth2] first-token logits vs the slot prefill: max abs diff "
+        f"{gaps}; on vs off {onoff:.4g}; width-1 vs verify-width gap "
+        f"{gap1:.4g}; tau = {tau:.4g}")
+    # the prefix rule's share depends on tau and the reference's margins
+    # only, so it is one share for both kernel settings
+    for name in ("on", "off"):
+        compared, cut = tau_check(runs[name][0], ref_tok, margins, tau, n,
+                                  what=f"depth2 {name}")
+        share = compared / (b * n)
+        say(f"[depth2] kernel {name} == AR at the verify width on {compared} "
+            f"of {b * n} positions ({share:.1%}), cut {cut}; at least 90%: "
+            f"{share >= 0.9}")
+    same = int((runs["on"][0] == runs["off"][0]).sum())
+    say(f"[depth2] kernel on == off at {same} of {b * n} positions")
+    tau0 = 2.0 * max(gaps["variant 0 AR, on"], gap1, tau / 2)
+    compared, cut = tau_check(runs["variant 0 AR, on"][0], ref_tok, margins,
+                              tau0, n, what="depth2 variant 0")
+    say(f"[depth2] variant 0 (bf16 pool, AR, paged_gqa at T=1) == spec "
+        f"reference on {compared} of {b * n} positions "
+        f"({compared / (b * n):.1%}) under tau = {tau0:.4g}, cut {cut}")
 
 
 # ---------------------------------------------------------------------------
@@ -477,9 +978,20 @@ def run(args) -> None:
     small_phase(args.seed)
     # 6. main path
     main = main_phase(packed, cfg, cass, gen, args)
+    gen2 = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    # 4b. paged kernels against their plain versions
+    paged = paged_phase(packed, cfg, cass, main["prompt"], args.max_new, gen2)
+    # 7. the paged scheduler at full width
+    sched = sched_phase(packed, cfg, cass, args, main, paged, agg)
+    say(f"[sched] max_memory_allocated during the scheduler run "
+        f"{sched['peak'] / 2**30:.2f} GiB")
+    del packed
+    torch.cuda.empty_cache()
+    # 8. the scheduler's bitwise gates at 2 layers
+    depth_phase(args, gen2)
 
-    # 7. report
-    say('kernels: ["draft_matmul"]')
+    # 9. report
+    say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed"]')
     line = {"kernels": [{
         "name": "draft_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/draft_matmul.cu",
@@ -491,9 +1003,24 @@ def run(args) -> None:
         if agg["bytes"] / HBM_BYTES_PER_S >= agg["ops"] / BF16_OPS_PER_S
         else "operations",
         "library_ms": agg["library_ms"]}]}
-    for v in line["kernels"][0].values():
-        if isinstance(v, float) and not math.isfinite(v):
-            fail(f"non-finite number in the kernels line: {line}")
+    # the paged kernels at their main-path shape: the model's pools after
+    # the prefill, T=1 for the drafts, T=γ+1 for the verify pass
+    for name, line_no, t in (("paged_gqa", 337, cass.gamma + 1),
+                             ("paged_gqa_packed", 416, 1)):
+        row = _main_row(paged, name, t)
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_gqa.cu",
+            "replaces": f"src/repro/kernels/paged_attention.py:{line_no}",
+            "launches": sched["launches"][name],
+            "max_abs_err": paged["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    for k in line["kernels"]:
+        for v in k.values():
+            if isinstance(v, float) and not math.isfinite(v):
+                fail(f"non-finite number in the kernels line: {line}")
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

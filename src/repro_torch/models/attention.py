@@ -2,13 +2,16 @@
 
 ``_attend_dense`` serves decode (q = 1 or γ+1) and prompts up to 2048
 tokens; ``_attend_flash`` is the chunked online-softmax path beyond that,
-f32 accumulators throughout. MLA, cross-attention and the paged-kernel
-entry points join with later slices (ROADMAP Queue 1 steps 6 and 9).
+f32 accumulators throughout. ``gqa_attention_paged`` is cached decode
+over a paged cache through the table-walking kernels
+(``kernels/paged_attention``). MLA and cross-attention join with later
+slices (ROADMAP Queue 1 step 9).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KC
@@ -187,3 +190,65 @@ def gqa_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
         new_kv = (k, v)
     out = out.reshape(b, sq, cfg.n_heads * out.shape[-1])
     return L.dense(rt, p["wo"], out, "attn.wo"), new_kv
+
+
+# ---------------------------------------------------------------------------
+# Paged-kernel decode (attn_kernel="on"): the pool walk runs in
+# kernels/paged_attention; the scratch/new-token suffix, which lives outside
+# the pool, is folded in with one more flash step, then wo as usual.
+# ---------------------------------------------------------------------------
+
+def _suffix_valid(b: int, sq: int, g_scratch: int, scratch_len,
+                  device=None) -> torch.Tensor:
+    """(B, Sq, g_scratch + Sq) bool: scratch validity + causal triangle."""
+    parts = []
+    if g_scratch:
+        gv = torch.arange(g_scratch, device=device) < scratch_len
+        parts.append(gv[None, None].expand(b, sq, g_scratch))
+    tri = causal_mask(sq, sq, 0, device)[0]                # (1, Sq, Sq)
+    parts.append(tri.expand(b, sq, sq))
+    return torch.cat(parts, dim=-1)
+
+
+def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
+                        kv_pools: tuple, table: torch.Tensor,
+                        length: torch.Tensor, scratch: dict | None,
+                        scratch_len):
+    """GQA cached decode through the paged-attention kernels.
+
+    ``kv_pools`` is ``("plain", k_pool, v_pool)`` (bf16 (NB,BS,Hkv,hd)
+    pools) or ``("packed", k_spec, v_spec, book, keep)`` (the speculation
+    leaf dicts; the decode runs inside the kernel). The pool holds each
+    row's committed prefix (``length`` tokens); the draft scratch and the
+    new tokens form the suffix. Returns (out, (new_k, new_v)).
+    """
+    cfg = rt.cfg
+    b, sq, _ = x.shape
+    hkv = cfg.n_kv_heads
+    g = cfg.n_heads // hkv
+    scale = 1.0 / (cfg.hd ** 0.5)
+    q = gqa_project_q(rt, p, x, positions)
+    new_k, new_v = gqa_project_kv(rt, p, x, positions)
+    qg = q.reshape(b, sq, hkv, g, cfg.hd)
+    length = length.to(torch.int32).reshape(-1).expand(b).contiguous()
+    if kv_pools[0] == "packed":
+        _, k_spec, v_spec, book, keep = kv_pools
+        acc, m, l = PA.paged_gqa_packed(
+            qg, k_spec, v_spec, table, length, book, d=cfg.hd, keep=keep,
+            trunc=rt.cass.kv_trunc, exp_bits=rt.cass.exp_bits, scale=scale)
+    else:
+        _, k_pool, v_pool = kv_pools
+        acc, m, l = PA.paged_gqa(qg, k_pool, v_pool, table, length,
+                                 scale=scale)
+    if scratch is not None:
+        g_s = scratch["k"].shape[1]
+        suf_k = torch.cat([scratch["k"], new_k.to(scratch["k"].dtype)], dim=1)
+        suf_v = torch.cat([scratch["v"], new_v.to(scratch["v"].dtype)], dim=1)
+    else:
+        g_s = 0
+        suf_k, suf_v = new_k, new_v
+    suf_valid = _suffix_valid(b, sq, g_s, scratch_len, x.device)
+    out = PA.merge_gqa_suffix(acc, m, l, qg, suf_k, suf_v, suf_valid,
+                              scale=scale)                 # (B,Sq,hkv,g,hd)
+    out = out.reshape(b, sq, cfg.n_heads * cfg.hd).to(x.dtype)
+    return L.dense(rt, p["wo"], out, "attn.wo"), (new_k, new_v)

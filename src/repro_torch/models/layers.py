@@ -24,14 +24,21 @@ from repro_torch.kernels import draft_matmul as DM
 class Runtime:
     """Static per-call context threaded through all layer functions.
 
-    It names no device and no kernel switch: every function follows its
-    tensors' device, and each kernel wrapper launches the hand-written
-    kernel on CUDA tensors and its plain version on CPU tensors
-    (``kernels/draft_matmul.py``).
+    It names no device: every function follows its tensors' device, and
+    each kernel wrapper launches the hand-written kernel on CUDA tensors
+    and its plain version on CPU tensors (``kernels/draft_matmul.py``,
+    ``kernels/paged_attention.py``).
+
+    ``attn_kernel`` chooses the cached-decode attention of a paged cache:
+    ``"off"`` gathers each row's prefix through its block table and
+    attends densely (the reference's gather path); ``"on"`` walks the
+    table through ``kernels/paged_attention`` and never gathers. It needs
+    a paged cache (``serving.engine.validate_serving_knobs``).
     """
     cfg: ModelConfig
     cass: CassandraConfig | None = None
     view: str = "plain"                 # plain | draft | target
+    attn_kernel: str = "off"            # off | on
     attn_chunk_q: int = 1024
     attn_chunk_k: int = 1024
 

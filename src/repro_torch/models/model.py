@@ -123,11 +123,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
-                scratch, length, scratch_len, book, s_max, ventry=None):
-    """Attention sub-block (slot caches). Returns (out, upd).
+                scratch, length, scratch_len, book, s_max, ventry=None,
+                table=None):
+    """Attention sub-block. Returns (out, upd).
 
     ``ventry`` — optional pre-materialised dense view of the packed cache
     entry (decoded once per speculative cycle and reused by the γ drafts).
+    ``table`` — the (B,MB) block table of a paged cache: with
+    ``rt.attn_kernel == "on"`` the pool is walked in-kernel
+    (``_attn_entry_paged``); otherwise each row's prefix is gathered
+    through the table and attended like a slot row of MB·BS positions.
     """
     cfg = rt.cfg
     view = "draft" if rt.view == "draft" else "target"
@@ -135,6 +140,14 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
         out, kv = A.gqa_attention(rt, bp["attn"], x, positions,
                                   causal=causal)
         return out, {"k": kv[0], "v": kv[1]}
+    if rt.attn_kernel == "on":
+        if table is None:
+            raise ValueError("attn_kernel='on' walks a block table: it "
+                             "needs a paged cache")
+        return _attn_entry_paged(rt, bp, x, positions, centry=centry,
+                                 scratch=scratch, length=length,
+                                 scratch_len=scratch_len, book=book,
+                                 ventry=ventry, table=table)
     # prefix = cache view with the draft scratch placed after each row's
     # length: every key at its absolute position (see gqa_attention)
     dev = x.device
@@ -142,9 +155,15 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
     valid = torch.arange(s_max, device=dev) < start + scratch_len
     if ventry is not None:
         pk, pv = ventry["k"], ventry["v"]
+        if table is not None:
+            pk = KC.gather_block_leaf(pk, table)
+            pv = KC.gather_block_leaf(pv, table)
     else:
-        pk = KC.read_store(rt.cass, centry["k"], cfg.hd, view, book)
-        pv = KC.read_store(rt.cass, centry["v"], cfg.hd, view, book)
+        sk, sv = centry["k"], centry["v"]
+        if table is not None:
+            sk, sv = KC.gather_store(sk, table), KC.gather_store(sv, table)
+        pk = KC.read_store(rt.cass, sk, cfg.hd, view, book)
+        pv = KC.read_store(rt.cass, sv, cfg.hd, view, book)
     if scratch is not None:
         spos = start + torch.arange(scratch["k"].shape[1], device=dev)
         pk, pv = A.place_at_positions((pk, pv), (scratch["k"],
@@ -154,15 +173,43 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
     return out, {"k": nk, "v": nv}
 
 
+def _attn_entry_paged(rt: Runtime, bp: dict, x, positions, *, centry,
+                      scratch, length, scratch_len, book, ventry, table):
+    """Cached decode through ``kernels/paged_attention`` (GQA).
+
+    The pool stays in pool layout and no row's prefix is gathered. A
+    packed cache feeds the draft pass its speculation leaves directly: the
+    Cassandra decode runs inside the kernel. The verify pass (target view)
+    reads a dense pool (``ventry`` or ``read_store`` over the whole pool)
+    through the plain kernel.
+    """
+    cfg, cass = rt.cfg, rt.cass
+    view = "draft" if rt.view == "draft" else "target"
+    if ventry is None and KC.is_packed(centry["k"]) and view == "draft":
+        kv_pools = ("packed", centry["k"]["spec"], centry["v"]["spec"],
+                    book[0], cass.kv_keep(cfg.hd))
+    else:
+        if ventry is not None:
+            pk, pv = ventry["k"], ventry["v"]
+        else:
+            pk = KC.read_store(cass, centry["k"], cfg.hd, view, book)
+            pv = KC.read_store(cass, centry["v"], cfg.hd, view, book)
+        kv_pools = ("plain", pk, pv)
+    out, (nk, nv) = A.gqa_attention_paged(
+        rt, bp["attn"], x, positions, kv_pools=kv_pools, table=table,
+        length=length, scratch=scratch, scratch_len=scratch_len)
+    return out, {"k": nk, "v": nv}
+
+
 def _block(rt: Runtime, bp: dict, entry: str, x, positions, *, mode,
            causal=True, centry=None, scratch=None, length=None,
-           scratch_len=None, book=None, s_max=0, ventry=None):
+           scratch_len=None, book=None, s_max=0, ventry=None, table=None):
     """One transformer block. Returns (x, cache_update)."""
     h = L.norm(rt, bp["norm1"], x)
     out, kv_upd = _attn_entry(rt, bp, h, positions, causal=causal,
                               centry=centry, scratch=scratch, length=length,
                               scratch_len=scratch_len, book=book,
-                              s_max=s_max, ventry=ventry)
+                              s_max=s_max, ventry=ventry, table=table)
     upd = dict(kv_upd) if mode in ("decode", "prefill") else {}
     x = x + out
     h = L.norm(rt, bp["norm2"], x)
@@ -192,7 +239,7 @@ def _stack_updates(per_layer: list[dict]) -> dict:
 def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                  positions, *, mode, causal=True, cache_groups=None,
                  scratch_groups=None, length=None, scratch_len=None,
-                 book=None, s_max=0, view_groups=None):
+                 book=None, s_max=0, view_groups=None, table=None):
     """Run all layer groups; a loop over the repeats R of each group.
 
     Returns (x, updates_groups) with updates stacked along R like the
@@ -214,7 +261,7 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                     causal=causal, centry=pick(cache_groups),
                     scratch=pick(scratch_groups), length=length,
                     scratch_len=scratch_len, book=book, s_max=s_max,
-                    ventry=pick(view_groups))
+                    ventry=pick(view_groups), table=table)
                 if upd:
                     g_upd[ekey] = upd
             per_layer.append(g_upd)
@@ -264,7 +311,8 @@ def _commit_prefill(rt: Runtime, cache, updates_groups, s, book):
 
 
 def materialize_cache_view(rt: Runtime, cache: dict) -> list | None:
-    """Decode the packed cache's draft/target view once into dense stores.
+    """Decode the packed cache's draft/target view once into dense stores
+    (slot rows, or whole pools of a paged cache).
 
     The speculative engine reuses it across the γ draft steps. Returns
     None for plain caches.
@@ -293,7 +341,8 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
 
     ``updates`` mirrors the cache groups: per attention entry the new
     tokens' K/V (R,B,q,Hkv,hd) for the engine to commit. Rows are
-    independent: per-row ``length`` offsets positions and masks.
+    independent: per-row ``length`` offsets positions and masks. A paged
+    cache's ``block_table`` addresses its pools.
     """
     cfg = rt.cfg
     _check_dense(cfg)
@@ -311,17 +360,19 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
         rt, params["dec"], _entries(cfg), x, positions, mode="decode",
         cache_groups=cache["dec"], scratch_groups=scratch, length=length,
         scratch_len=slen, book=book, s_max=_cache_s_max(cfg, cache),
-        view_groups=cache_view)
+        view_groups=cache_view, table=cache.get("block_table"))
     x = L.norm(rt, params["final_norm"], x)
     return L.unembed(rt, params, x), upd
 
 
 def _cache_s_max(cfg: ModelConfig, cache: dict) -> int:
-    """Per-request token capacity of a slot cache (the S axis)."""
+    """Per-request token capacity: the S axis of a slot cache, or the
+    table width MB × the block size BS of a paged one."""
+    mb = cache["block_table"].shape[1] if KC.is_paged(cache) else 1
     for g in cache["dec"]:
         for e in g.values():
             leaf = e["k"]
             if KC.is_packed(leaf):
                 leaf = leaf["spec"]["bitmap"]
-            return leaf.shape[2]                      # (R,B,S,…)
+            return mb * leaf.shape[2]                 # (R,B,S,…) | (R,NB,BS,…)
     return 0

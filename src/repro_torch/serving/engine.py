@@ -1,5 +1,4 @@
-"""Speculative serving engine, fixed batch (port of the slot-layout path of
-``serving/engine.py``).
+"""Speculative serving engine (port of ``serving/engine.py``).
 
 One ``spec_decode_step`` per cycle:
 
@@ -13,13 +12,19 @@ One ``spec_decode_step`` per cycle:
    written at per-row offsets; rejected slots stay masked stale data.
 
 The autoregressive baseline is ``autoregressive_step``: one token per
-full-model read, at width 1 like the reference. Sampling (rejection
-sampling with a ``torch.Generator``), the fused/paged scheduler paths and
-telemetry are later ROADMAP Queue 1 items.
+full-model read, at width 1 like the reference.
+
+``unified_step`` fuses the cycle with chunked prefill admission: one
+mixed-role batch where each row is PREFILL (committing prompt-chunk
+tokens), DRAFT+VERIFY or IDLE; ``chunk_prefill_step`` is the wide
+single-role prefill. The continuous-batching ``serving.scheduler`` drives
+both over a slot or a paged cache. Sampling (rejection sampling with a
+``torch.Generator``) is a later ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -48,12 +53,81 @@ class EngineConfig:
     tie_margin: float = 0.0
 
 
+ATTN_KERNELS = ("off", "on")
+
+
+def validate_serving_knobs(cfg: ModelConfig, *, gamma: int, num_slots: int,
+                           s_max: int, chunk_size: int, fused: bool,
+                           speculative: bool, paged: bool, block_size: int,
+                           num_blocks: int | None,
+                           max_prefill_tokens_per_step: int | None,
+                           ttft_deadline_ms: float | None = None,
+                           itl_target_ms: float | None = None,
+                           attn_kernel: str = "off") -> None:
+    """Fail fast on inconsistent serving knobs, as one-line ValueErrors.
+
+    The SLO kwargs cover callers that apply one default SLO to every
+    request (``launch.serve``); per-request values go through
+    ``validate_request_slos`` at ``submit()`` time."""
+    validate_request_slos(ttft_deadline_ms=ttft_deadline_ms,
+                          itl_target_ms=itl_target_ms)
+    if num_slots < 1:
+        raise ValueError(f"num_slots must be >= 1 (got {num_slots})")
+    if s_max < gamma + 2:
+        raise ValueError(
+            f"s_max={s_max} cannot hold even a 1-token prompt plus the "
+            f"γ+1={gamma + 1} speculative horizon")
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1 (got {chunk_size})")
+    if fused and speculative and chunk_size < gamma + 1:
+        raise ValueError(
+            f"chunk_size={chunk_size} < γ+1={gamma + 1}: the wide "
+            "admission bucket would prefill slower than riding fused "
+            "cycles, inverting the planner's cost model — raise "
+            "chunk_size or lower gamma")
+    if (max_prefill_tokens_per_step is not None
+            and max_prefill_tokens_per_step < 1):
+        raise ValueError(
+            "max_prefill_tokens_per_step must be >= 1 (or None): a "
+            "zero budget would strand prefilling rows forever")
+    if paged:
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1 (got {block_size})")
+        if num_blocks is not None and num_blocks < 2:
+            raise ValueError(
+                f"num_blocks={num_blocks}: the pool needs at least one "
+                "allocatable block besides the reserved trash block")
+    if attn_kernel not in ATTN_KERNELS:
+        raise ValueError(f"attn_kernel={attn_kernel!r}: expected one of "
+                         f"{'|'.join(ATTN_KERNELS)}")
+    if attn_kernel != "off" and not paged:
+        raise ValueError(
+            "attn_kernel walks the (B,MB) block table in-kernel — it "
+            "requires the paged layout (paged=True)")
+
+
+def validate_request_slos(*, ttft_deadline_ms: float | None = None,
+                          itl_target_ms: float | None = None) -> None:
+    """Each SLO is None (unconstrained) or a finite number of ms > 0."""
+    for name, val in (("ttft_deadline_ms", ttft_deadline_ms),
+                      ("itl_target_ms", itl_target_ms)):
+        if val is None:
+            continue
+        if isinstance(val, bool) or not isinstance(val, (int, float)):
+            raise ValueError(f"{name} must be a number in ms or None "
+                             f"(got {val!r})")
+        if not math.isfinite(val) or val <= 0:
+            raise ValueError(f"{name} must be finite and > 0 ms "
+                             f"(got {val})")
+
+
 # ---------------------------------------------------------------------------
 # Scratch (draft-side transient state)
 # ---------------------------------------------------------------------------
 
 def make_scratch(cfg: ModelConfig, cache: dict, gamma: int) -> list:
-    """γ-slot KV scratch per attention entry, (R,B,γ,Hkv,hd) bf16."""
+    """γ-slot KV scratch per attention entry, (R,B,γ,Hkv,hd) bf16 (the
+    batch comes from ``length``: paged pools have no batch axis)."""
     b = cache["length"].shape[0]
     dev = cache["length"].device
     groups = []
@@ -82,10 +156,13 @@ def _scratch_write(scratch: list, updates: list, slot: int) -> list:
 
 def commit(rt: Runtime, cache: dict, updates: list,
            n: torch.Tensor) -> dict:
-    """Append target-recomputed K/V for n+1 accepted tokens per row."""
+    """Append target-recomputed K/V for n+1 accepted tokens per row: into
+    each row's slot region, or through the block table into the pool. The
+    new ``length`` is a new tensor; the stores are written in place."""
     cfg, cass = rt.cfg, rt.cass
     book = KC.cache_codebook(cache)
     length = cache["length"]
+    table = cache.get("block_table")
     for gi, gupd in enumerate(updates):
         for ekey, upd in gupd.items():
             centry = cache["dec"][gi][ekey]
@@ -95,7 +172,7 @@ def commit(rt: Runtime, cache: dict, updates: list,
                     new = KC.encode_store(cass, new, cfg.hd, book)
                 for r in range(upd[nm].shape[0]):
                     KC.append_batched(M._index(centry[nm], r),
-                                      M._index(new, r), length)
+                                      M._index(new, r), length, table)
     cache["length"] = length + n.to(length.dtype) + 1
     return cache
 
@@ -107,13 +184,23 @@ def commit(rt: Runtime, cache: dict, updates: list,
 def _run_drafts(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
                 ecfg: EngineConfig):
     """γ draft steps with ``view="draft"``; reads the cache, never writes
-    it. Returns (draft_tokens (B,γ), per-step draft logits)."""
+    it, so rows whose draft inputs are garbage (prefill and idle rows of a
+    fused cycle) are harmless. Returns (draft_tokens (B,γ), per-step draft
+    logits).
+
+    The cache's draft view is decoded once for the γ passes — unless the
+    paged-attention kernel is on: it decodes the packed pool inside the
+    kernel on every pass, so materialising would waste the decode and
+    reroute the drafts onto the plain kernel."""
     if not ecfg.greedy:
         raise NotImplementedError(_SAMPLING)
     cfg = rt.cfg
     gamma = ecfg.gamma
     rt_d = dataclasses.replace(rt, view="draft" if rt.cass else "plain")
-    draft_view = M.materialize_cache_view(rt_d, cache)
+    if rt.attn_kernel == "on" and KC.is_paged(cache):
+        draft_view = None
+    else:
+        draft_view = M.materialize_cache_view(rt_d, cache)
     draft_tokens, draft_logits = [], []
     if ecfg.stable_draft:
         toks = torch.cat([cur_tokens, cur_tokens.new_zeros(
@@ -163,6 +250,64 @@ def spec_decode_step(rt: Runtime, params, cache: dict,
     res = _accept(draft_tokens, draft_logits, t_logits, ecfg)
     cache = commit(rt, cache, t_upd, res.n_accepted)
     return res, cache
+
+
+def unified_step(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
+                 chunk_tokens: torch.Tensor, prefill_valid: torch.Tensor,
+                 decode_mask: torch.Tensor, ecfg: EngineConfig):
+    """One fused serving cycle over a mixed-role batch.
+
+    * PREFILL rows (``prefill_valid[b] > 0``) commit their next
+      ``prefill_valid[b]`` prompt tokens from ``chunk_tokens[b]``; the
+      returned ``last[b]`` holds the logits at the chunk's last real
+      token (the first generated token once the prompt is exhausted);
+    * DRAFT+VERIFY rows (``decode_mask[b]``) run one speculative cycle on
+      ``cur_tokens[b]``; results land in the returned ``AcceptResult``;
+    * IDLE rows commit one garbage token into their masked stale region
+      or the trash block; the caller freezes their ``length``.
+
+    ``chunk_tokens`` is (B, γ+1): the fused pass width is the verify
+    width, so decode rows see the operand shapes of ``spec_decode_step``.
+    The γ draft passes run for every row (drafts write scratch only); one
+    target pass then verifies decode rows and prefills prefill rows.
+
+    Deferred-harvest contract: ``res`` and ``last`` are tensors of their
+    own (the cache is written in place, never through them), so a caller
+    may hold them a full cycle and copy them to the host late; ``commit``
+    advances ``length`` on the device, so a later cycle can chain off
+    ``res.next_token`` with no host push of lengths.
+    """
+    rt_t = dataclasses.replace(rt, view="target" if rt.cass else "plain")
+    draft_tokens, draft_logits = _run_drafts(rt, params, cache, cur_tokens,
+                                             ecfg)
+    is_prefill = prefill_valid > 0
+    ver_tokens = torch.cat([cur_tokens, draft_tokens], dim=1)
+    tokens = torch.where(is_prefill[:, None], chunk_tokens.to(torch.int32),
+                         ver_tokens)
+    t_logits, t_upd = M.forward_decode(rt_t, params, tokens, cache)
+    res = _accept(draft_tokens, draft_logits, t_logits, ecfg)
+    n = torch.where(is_prefill,
+                    prefill_valid.to(torch.int32).clamp(min=1) - 1,
+                    torch.where(decode_mask, res.n_accepted, 0))
+    cache = commit(rt, cache, t_upd, n)
+    last = torch.gather(t_logits, 1, n.to(torch.int64)[:, None, None].expand(
+        -1, 1, t_logits.shape[-1]))[:, 0]
+    return res, last, cache
+
+
+def chunk_prefill_step(rt: Runtime, params, cache: dict,
+                       tokens: torch.Tensor, valid: torch.Tensor):
+    """One batched prefill chunk: q=C prompt tokens per row, appended at
+    each row's ``length``; ``valid`` (B,) counts each row's real tokens (0
+    for rows riding along, which commit one garbage token the caller
+    freezes). Returns (logits at each row's last real token, cache)."""
+    rt_t = dataclasses.replace(rt, view="target" if rt.cass else "plain")
+    logits, upd = M.forward_decode(rt_t, params, tokens, cache)
+    n = valid.to(torch.int32).clamp(min=1) - 1
+    cache = commit(rt, cache, upd, n)
+    last = torch.gather(logits, 1, n.to(torch.int64)[:, None, None].expand(
+        -1, 1, logits.shape[-1]))[:, 0]
+    return last, cache
 
 
 def autoregressive_step(rt: Runtime, params, cache: dict,

@@ -1,5 +1,5 @@
-"""KV cache, slot layout: plain bf16 or Cassandra-packed (port of the slot
-half of ``serving/kvcache.py``).
+"""KV cache: plain bf16 or Cassandra-packed, in the slot or the paged
+layout (port of ``serving/kvcache.py``).
 
 Each (token, head) vector is packed online with magnitude top-k pruning,
 mantissa truncation and unary/delta exponent coding against a
@@ -15,10 +15,19 @@ plain store = bf16 tensor; packed store = {"spec": {...}, "verif": {...}}.
 The cache also carries ``length`` (B,) int32 and, when packed, the book
 (``book_exp_of_rank``/``book_rank_of_exp``, 256 uint8 each).
 
+Two layouts share the store codecs:
+
+* **slot** (``init_cache``) — every request owns a contiguous ``(S_max,)``
+  row: leaves (R,B,S_max,…);
+* **paged** (``init_paged_cache``) — stores hold a pool of fixed-size
+  token blocks shared by all rows, leaves (R,NB,BS,…), addressed through a
+  per-row ``block_table`` (B,MB) int32. Block 0 is the trash block
+  (``serving.blockpool``): unmapped table entries point at it.
+
 Appends write into the cache's tensors in place (the reference returns
 new arrays); callers never read a cache again after committing to it, so
-no copy of the stores is ever needed. The paged layout is ROADMAP Queue 1
-step 6.
+no copy of the stores is ever needed. Block copies, spill and restore
+(prefix cache, swap) are ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -27,10 +36,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_groups
 from repro_torch.core import format as fmt
 from repro_torch.core.format import CassandraConfig
+from repro_torch.serving.blockpool import TRASH_BLOCK
 
 ONLINE_CORR_BITS = 8
-_PAGED = ("the paged KV layout is not ported yet: ROADMAP Queue 1 step 6 "
-          "(paged serving core)")
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +155,69 @@ def append_store_batched(store, new_store, at: torch.Tensor):
     return store
 
 
+def is_paged(cache: dict) -> bool:
+    return "block_table" in cache
+
+
+def gather_block_leaf(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(NB,BS,…) pool + (B,MB) table -> (B,MB*BS,…) request-major copy.
+
+    Out-of-range table entries read the trash block (index 0), as the
+    paged-attention kernels do."""
+    nb = pool.shape[0]
+    ok = (table >= 0) & (table < nb)
+    idx = torch.where(ok, table, TRASH_BLOCK).to(torch.int64)
+    out = pool[idx]                                        # (B,MB,BS,…)
+    return out.reshape(table.shape[0], table.shape[1] * pool.shape[1],
+                       *pool.shape[2:])
+
+
+def gather_store(store, table: torch.Tensor):
+    """Pool store (NB,BS,…) + table (B,MB) -> per-request store (B,MB*BS,…),
+    leaf by leaf (packed stores gather without decoding)."""
+    if not is_packed(store):
+        return gather_block_leaf(store, table)
+    return {z: {k: gather_block_leaf(v, table) for k, v in store[z].items()}
+            for z in ("spec", "verif")}
+
+
+def append_paged_batched(store, new_store, table: torch.Tensor,
+                         at: torch.Tensor):
+    """Scatter per-row runs into the block pool through the table, in place.
+
+    ``store`` leaves (NB,BS,…); ``new_store`` leaves (B,q,…); row ``b``
+    writes at logical positions ``at[b]+i``, physical slot
+    ``table[b, pos//BS]*BS + pos%BS``. Positions past the row's table or
+    on an unmapped entry go to the trash block and store that slot's own
+    value back, so the trash block never changes and no result depends on
+    which of two writes to one slot wins (real blocks belong to one row
+    each, so only trash slots are written twice)."""
+    leaves = _zip_leaves(store, new_store)
+    c, n = leaves[0]
+    nb, bs = c.shape[0], c.shape[1]
+    b, q = n.shape[0], n.shape[1]
+    mb = table.shape[1]
+    pos = at.to(torch.int64)[:, None] + torch.arange(q, device=c.device)
+    lblk = pos // bs
+    phys = torch.gather(table.to(torch.int64), 1, lblk.clamp(max=mb - 1))
+    phys = torch.where((lblk < mb) & (phys > TRASH_BLOCK) & (phys < nb),
+                       phys, TRASH_BLOCK)
+    idx = (phys * bs + pos % bs).reshape(-1)
+    keep = (phys != TRASH_BLOCK).reshape(-1)
+    for c, n in leaves:
+        flat = c.view(nb * bs, *c.shape[2:])
+        new = n.to(c.dtype).reshape(b * q, *n.shape[2:])
+        k = keep.reshape(-1, *([1] * (new.ndim - 1)))
+        flat[idx] = torch.where(k, new, flat[idx])
+    return store
+
+
 def append_batched(store, new_store, at: torch.Tensor, table=None):
-    """The append path; the slot layout only in this slice."""
-    if table is not None:
-        raise NotImplementedError(_PAGED)
-    return append_store_batched(store, new_store, at)
+    """THE append path: per-row runs into either layout (``table`` None:
+    the row's slot region; a (B,MB) table: the block pool)."""
+    if table is None:
+        return append_store_batched(store, new_store, at)
+    return append_paged_batched(store, new_store, table, at)
 
 
 # ---------------------------------------------------------------------------
@@ -199,19 +265,45 @@ def _install_book(cache: dict, codebook) -> dict:
     return cache
 
 
+def _alloc(node, device):
+    """Zeroed tensors for a (shape, dtype) table."""
+    if isinstance(node, dict):
+        return {k: _alloc(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_alloc(v, device) for v in node]
+    shape, dtype = node
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
 def init_cache(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
                s_max: int, packed: bool, codebook=None,
                device="cuda") -> dict:
     """Allocate a zeroed slot cache on ``device``."""
-    def alloc(node):
-        if isinstance(node, dict):
-            return {k: alloc(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [alloc(v) for v in node]
-        shape, dtype = node
-        return torch.zeros(shape, dtype=dtype, device=device)
+    cache = _alloc(cache_specs(cfg, cass, b, s_max, packed), device)
+    if packed:
+        cache = _install_book(cache, codebook)
+    return cache
 
-    cache = alloc(cache_specs(cfg, cass, b, s_max, packed))
+
+def paged_cache_specs(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
+                      num_blocks: int, block_size: int, max_blocks: int,
+                      packed: bool) -> dict:
+    """Plain shape table of a paged cache: stores become block pools
+    (R,NB,BS,…) shared by all rows; ``block_table`` (B,MB) maps each row's
+    logical blocks to pool blocks; ``length`` stays (B,)."""
+    cache = cache_specs(cfg, cass, num_blocks, block_size, packed)
+    cache["length"] = ((b,), torch.int32)
+    cache["block_table"] = ((b, max_blocks), torch.int32)
+    return cache
+
+
+def init_paged_cache(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
+                     num_blocks: int, block_size: int, max_blocks: int,
+                     packed: bool, codebook=None, device="cuda") -> dict:
+    """Allocate a zeroed paged cache on ``device``; every table entry starts
+    at the trash block (0)."""
+    cache = _alloc(paged_cache_specs(cfg, cass, b, num_blocks, block_size,
+                                     max_blocks, packed), device)
     if packed:
         cache = _install_book(cache, codebook)
     return cache

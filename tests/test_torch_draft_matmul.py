@@ -123,7 +123,7 @@ def test_stacked_prepare_params_is_per_layer():
 def test_build_is_lazy_and_content_addressed():
     """Importing the port never runs nvcc; the library name carries a hash
     of the source and flags, under the ignored build/ directory."""
-    assert build.sources() == ["draft_matmul"]
+    assert build.sources() == ["draft_matmul", "paged_gqa"]
     target = build._target("draft_matmul")
     assert target.parent == build.BUILD_DIR
     assert target.parent.parts[-2:] == ("build", "kernels")
