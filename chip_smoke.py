@@ -33,6 +33,11 @@ these phases; any failure exits non-zero:
               32}: the packed kernel's decode bit for bit, (acc, m, l) and
               the merged output within rtol 1e-4 / atol 1e-5; kernel,
               bound, plain and library µs per shape;
+4c. codec   — ``unary_decode`` on the C-1 model's own exponent regions
+              and arbitrary words, ``kv_topk`` on a prefill's K and V and
+              on rows with ties, +-0 and all-equal values: bit for bit
+              against their plain versions; kernel, bound, plain (and, for
+              ``kv_topk``, ``torch.topk`` as the nearest library call) µs;
 7. sched    — the paged continuous-batching ``Scheduler`` at full width on
               phase 6's prompts (4 slots, block 16, chunk 32, fused,
               overlap, ``attn_kernel="on"``): 32 tokens per request,
@@ -44,12 +49,28 @@ these phases; any failure exits non-zero:
               fused == alternating bit for bit, kernel on == off under the
               near-tie rule over ≥ 90% of positions, the bf16
               autoregressive baseline (variant 0) against them;
-9. report   — ``kernels: [...]``, one JSON line per the kernels table,
+9. c2       — Cassandra-2 (MX) at full width from ``--seed``: packed bytes
+              and the share of weight values the target view returns
+              exactly; ``mx_decode`` bit for bit against its plain version
+              on the model's w_gate (draft and target lanes) and a KV
+              store; ``Engine.generate`` on phase 6's prompts, spec tokens
+              equal to AR steps of the C-2 target view at the verify
+              width on every position; one verify pass and the draft side
+              timed;
+10. c2 sched — Cassandra-2 through the paged ``Scheduler`` at 2 layers
+              (full width, attention kernel off): every request its
+              tokens, overlap on == off and fused == alternating bit for
+              bit, ``attn_kernel="on"`` refused with the reference's
+              limitation;
+11. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 7, 8, 9 (4b reads phase 6's prompts);
-phases 1-6 draw their inputs from ``--seed`` as before, the later ones
-from a generator of their own.
+Phases run in the order 1-6, 4b, 4c, 7-11 (4b and 4c read phase 6's
+prompts). Phases 6, 7, 9 and 10 set every kernel's launch count to 0
+before their run and check it after against what the passes imply (the
+C-1 runs also count ``kv_topk``, the KV encode, and ``unary_decode``, the
+exponent decode of the target view). Phases 1-6 draw their inputs from
+``--seed``, the later ones from generators of their own.
 
 Every time is measured on the card in this run (CUDA events, or the host
 clock around work that ends in ``torch.cuda.synchronize()``).
@@ -57,6 +78,7 @@ clock around work that ends in ``torch.cuda.synchronize()``).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -67,6 +89,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
+CORE_OPS_PER_S = 67e12             # f32 outside the tensor cores: the codec
+                                   # kernels' integer and compare operations
 RTOL, ATOL = 2e-2, 1e-3            # y vs the plain version (different sum order)
 # flash state of the paged kernels vs their plain versions: the same f32
 # steps summed in another order
@@ -388,13 +412,14 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     ar_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    DM.draft_matmul.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sp, st_sp = eng.generate(prompt, max_new=n, speculative=True)
     torch.cuda.synchronize()
     sp_s = time.perf_counter() - t0
     launches = DM.draft_matmul.launches
+    codec = codec_launches()
     peak = torch.cuda.max_memory_allocated()
 
     ar_np, sp_np = ar.cpu().numpy(), sp.cpu().numpy()
@@ -425,6 +450,14 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     if launches == 0 or launches != expect:
         fail(f"main: draft_matmul launched {launches} times, expected "
              f"{expect}")
+    # the target decode of every weight (kept and pruned exponent regions)
+    # per target pass, the KV target view per layer per verify pass, the
+    # cache's draft view once per cycle; the KV encode per commit
+    cyc, units = st_sp["cycles"], decode_units(packed)
+    check_launches("main", codec, {
+        "mx_decode": 0, "kv_topk": 2 * (1 + cyc),
+        "unary_decode": 2 * units * (1 + cyc) + 2 * cfg.n_layers * cyc
+        + 2 * cyc})
     say(f"[main] spec: cycles {st_sp['cycles']}, acceptance "
         f"{st_sp['acceptance']:.3f}, tokens/cycle "
         f"{st_sp['tokens_per_cycle']:.3f}, {b * n / sp_s:.2f} tok/s "
@@ -433,8 +466,8 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
         f"{b * n / ar_s:.2f} tok/s ({ar_s:.1f} s)")
     say(f"[main] max_memory_allocated during the spec run "
         f"{peak / 2**30:.2f} GiB")
-    return {"launches": launches, "prompt": prompt["tokens"], "lg": lg_cpu,
-            "wide": wide}
+    return {"launches": launches, "codec": codec, "prompt": prompt["tokens"],
+            "lg": lg_cpu, "wide": wide}
 
 # ---------------------------------------------------------------------------
 # Phase 4b: the paged-attention kernels against their plain versions
@@ -726,6 +759,9 @@ def serve_paged(cfg, params, cass, prompt, n: int, speculative=True, **kw):
     sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the capture closes a reference cycle (sched -> capture -> bound
+    # method -> sched) that would keep the model alive until a full gc
+    del sched._finish_prefill
     for r in reqs:
         if len(r.output) != n:
             fail(f"sched: request {r.rid} delivered {len(r.output)} tokens, "
@@ -759,13 +795,13 @@ def sched_phase(packed, cfg, cass, args, main: dict, paged: dict,
     verify_ms, drafts_ms = paged_cycle_ms(packed, cfg, cass, prompt, n)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    DM.draft_matmul.launches = 0
-    PA.paged_gqa.launches = PA.paged_gqa_packed.launches = 0
+    reset_launches()
     sched, tokens, first, wall = serve_paged(cfg, packed, cass, prompt, n,
                                              attn_kernel="on")
     launches = {"draft_matmul": DM.draft_matmul.launches,
                 "paged_gqa": PA.paged_gqa.launches,
                 "paged_gqa_packed": PA.paged_gqa_packed.launches}
+    codec = codec_launches()
     peak = torch.cuda.max_memory_allocated()
     st = sched.summary()
     unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
@@ -778,6 +814,10 @@ def sched_phase(packed, cfg, cass, args, main: dict, paged: dict,
         f"passes x {layers}: {launches == expect}")
     if launches != expect or min(launches.values()) == 0:
         fail(f"sched: launches {launches} != expected {expect}")
+    # the packed kernel decodes the draft KV itself: no draft view
+    check_launches("sched", codec, {
+        "mx_decode": 0, "kv_topk": 2 * targets,
+        "unary_decode": targets * (2 * decode_units(packed) + 2 * layers)})
     # the first cycle: the wide prefill's last logits against the Engine's
     # prefill logits at the same tokens
     lg = main["lg"].numpy()
@@ -910,6 +950,412 @@ def depth_phase(args, gen) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4c: the codec kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def layer0_kv(packed, cfg, cass, prompt):
+    """A prefill's layer-0 K and V (B,S,Hkv,hd) bf16, the vectors the KV
+    encoder packs: norm1, the K/V projections (target view) and rope."""
+    import torch
+    from repro_torch.models import attention as A, layers as L, model as M
+    from repro_torch.models.layers import Runtime
+    rt = Runtime(cfg=cfg, cass=cass, view="target")
+    p0 = M._index(packed["dec"][0]["e0"], 0)
+    with torch.inference_mode():
+        x = L.norm(rt, p0["norm1"], L.embed(packed["embed"], prompt))
+        return A.gqa_project_kv(rt, p0["attn"], x, torch.arange(
+            prompt.shape[1], device=prompt.device))
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return all(_same_bits(a[k], b[k]) for k in a)
+    return torch.equal(_bits(a), _bits(b))
+
+
+def _max_err(a, b) -> float:
+    if isinstance(a, dict):
+        return max(_max_err(a[k], b[k]) for k in a)
+    if a.numel() == 0:
+        return 0.0
+    d = (a.double() - b.double()).abs().nan_to_num(0.0)
+    return float(d.max())
+
+
+def codec_row(kernel: str, case: str, run, plain, nbytes: int, ops: int,
+              library=None, reps: int = 20) -> dict:
+    """One codec kernel at one shape: bit for bit against its plain version
+    on the same inputs, then µs per launch (CUDA events), the bound (the
+    larger of the bytes at 3.35 TB/s and the integer/compare operations at
+    the CUDA cores' 67 T/s) and the plain version's time; ``library`` is
+    the nearest PyTorch call, timed as a yardstick only."""
+    import torch
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if not _same_bits(got, want):
+        fail(f"codec: {kernel} {case} differs from its plain version")
+    err = _max_err(got, want)
+    k_ms = cuda_ms(run, reps)
+    p_ms = cuda_ms(plain, 2)
+    l_ms = cuda_ms(library, reps) if library is not None else None
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
+    row = {"kernel": kernel, "case": case, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": max(tb, to) * 1e3,
+           "bound_by": "bytes" if tb >= to else "operations",
+           "library_ms": l_ms, "err": err, "bytes": nbytes}
+    lib = f"  nearest library {l_ms * 1e3:.1f} us" if l_ms is not None \
+        else "  library none"
+    say(f"[codec] {kernel:12s} {case:34s}: bit for bit; kernel "
+        f"{k_ms * 1e3:.1f} us  bound {row['bound_ms'] * 1e3:.2f} us "
+        f"({row['bound_by']}, {nbytes / 1e6:.2f} MB)  plain "
+        f"{p_ms * 1e3:.1f} us{lib}")
+    return row
+
+
+def codec_c1_phase(packed, cfg, cass, prompt, gen) -> list:
+    """unary_decode on the C-1 model's own exponent regions (w_gate, layer
+    0: kept and pruned) and arbitrary words; kv_topk on a prefill's K and V
+    and on synthetic rows with ties, +-0 and all-equal rows."""
+    import torch
+    from repro_torch.core import bitops, coding
+    from repro_torch.kernels import kv_topk as KT, unary_decode as UD
+    rows = []
+    wg = packed["dec"][0]["e0"]["ffn"]["w_gate"]["w"]
+    block = cass.weight_block(cfg.d_model)
+    keep = cass.weight_keep(block)
+    regions = (("w_gate kept exponent regions", wg["spec"]["exp_words"][0],
+                keep),
+               ("w_gate pruned exponent regions",
+                wg["verif"]["pruned_exp_words"][0], block - keep))
+    for case, words, k in regions:
+        words = words.reshape(-1, words.shape[-1]).contiguous()
+        r, w = words.shape
+        rows.append(codec_row(
+            "unary_decode", f"{case} {r}x{w}->{k}",
+            lambda words=words, k=k: UD.unary_decode(words, k),
+            lambda words=words, k=k: UD.unary_decode_plain(words, k),
+            4 * r * (w + k), 32 * r * w))
+    rnd = torch.randint(-2 ** 31, 2 ** 31 - 1, (16384, 30), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    rnd[:64] = 0
+    rnd[64:128] = -1                                     # no ones, all ones
+    rows.append(codec_row(
+        "unary_decode", "arbitrary words 16384x30->320",
+        lambda: UD.unary_decode(rnd, keep),
+        lambda: UD.unary_decode_plain(rnd, keep),
+        4 * 16384 * (30 + keep), 32 * 16384 * 30))
+    k, v = layer0_kv(packed, cfg, cass, prompt)
+    d, kk = cfg.hd, cass.kv_keep(cfg.hd)
+    syn = (torch.randn((4096, d), generator=gen, device="cuda") * 0.25).to(
+        torch.bfloat16)
+    syn[::4] = 1.0                                       # all equal
+    syn[1::4, ::2] = -0.0                                # +-0 and ties
+    syn[1::4, 1::2] = 0.0
+    syn[2::4] = syn[2::4].abs().round()
+    for case, x in (("prefill K (layer 0)", k), ("prefill V (layer 0)", v),
+                    ("synthetic ties / +-0 / all-equal", syn)):
+        x = x.reshape(-1, d).contiguous()
+        r = x.shape[0]
+        mag = x.float().abs()
+        rows.append(codec_row(
+            "kv_topk", f"{case} {r}x{d}->{kk}",
+            lambda x=x: KT.kv_topk(x, kk), lambda x=x: KT.kv_topk_plain(x, kk),
+            r * (2 * d + d // 8 + 2 * d), r * d * int(math.log2(d)),
+            library=lambda mag=mag: torch.topk(mag, kk, dim=-1)))
+    del k, v
+    return rows
+
+
+def codec_mx_phase(packed, cfg, cass, prompt) -> list:
+    """mx_decode on the C-2 model's own w_gate (layer 0: the draft and the
+    target containers of every kept lane) and on a KV store encoded from a
+    prefill's K."""
+    import torch
+    from repro_torch.core import bitops, format as fmt, mx
+    from repro_torch.kernels import mx_decode as MXD
+    from repro_torch.serving import kvcache as KC
+    db = cass.mx_draft_bits
+    lo_bits = mx.CONTAINER_BITS - db
+    block = cass.weight_block(cfg.d_model)
+    wg = packed["dec"][0]["e0"]["ffn"]["w_gate"]["w"]
+    k, _ = layer0_kv(packed, cfg, cass, prompt)
+    kv = KC.encode_store(cass, k, cfg.hd, KC.default_kv_codebook("cuda"))
+
+    def lanes(spec, verif, k_, target):
+        code = bitops.unpack_codes(spec["signmant"], 1 + db, k_)
+        m16 = (code & ((1 << db) - 1)) << lo_bits
+        if target:
+            m16 = m16 | bitops.unpack_codes(verif["mant_lo"], lo_bits, k_)
+        sign = ((code >> db) & 1).to(torch.uint8)
+        shape = (-1, k_)
+        return (sign.reshape(shape).contiguous(),
+                bitops.as_int16(m16).reshape(shape).contiguous(),
+                spec["shared_exp"].reshape(-1, spec["shared_exp"].shape[-1])
+                .contiguous())
+
+    cases = []
+    for target in (True, False):
+        cases.append((f"w_gate {'target' if target else 'draft'} lanes",
+                      lanes({n: t[0] for n, t in wg["spec"].items()},
+                            {n: t[0] for n, t in wg["verif"].items()},
+                            cass.weight_keep(block), target),
+                      cass.mx_group))
+    cases.append(("KV store target lanes (prefill K)",
+                  lanes(kv["spec"], kv["verif"], cass.kv_keep(cfg.hd), True),
+                  fmt.kv_group(cass, cfg.hd)))
+    rows = []
+    for case, (sg, m16, se), group in cases:
+        r, kk = m16.shape
+        rows.append(codec_row(
+            "mx_decode", f"{case} {r}x{kk} g{group}",
+            lambda a=(sg, m16, se), g=group: MXD.mx_decode(*a, g),
+            lambda a=(sg, m16, se), g=group: MXD.mx_decode_plain(*a, g),
+            r * kk * 5 + se.numel(), 12 * r * kk))
+    return rows
+
+
+def decode_units(packed) -> int:
+    """``ROW_CHUNK`` pieces one full decode of every packed weight runs (one
+    MX or exponent decode each): a piece per layer per weight, lm_head in
+    ceil(vocab / ROW_CHUNK)."""
+    from repro_torch.core.format import ROW_CHUNK
+    n = 0
+
+    def walk(node):
+        nonlocal n
+        if isinstance(node, dict):
+            if "spec" in node and "verif" in node:
+                bm = node["spec"]["bitmap"]
+                layers = bm.shape[0] if bm.ndim == 4 else 1
+                n += layers * -(-bm.shape[-3] // ROW_CHUNK)
+                return
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(packed)
+    return n
+
+
+def codec_launches() -> dict:
+    from repro_torch.kernels import kv_topk as KT, mx_decode as MXD
+    from repro_torch.kernels import unary_decode as UD
+    return {"mx_decode": MXD.mx_decode.launches,
+            "kv_topk": KT.kv_topk.launches,
+            "unary_decode": UD.unary_decode.launches}
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import draft_matmul as DM, kv_topk as KT
+    from repro_torch.kernels import mx_decode as MXD
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import unary_decode as UD
+    for fn in (DM.draft_matmul, PA.paged_gqa, PA.paged_gqa_packed,
+               MXD.mx_decode, KT.kv_topk, UD.unary_decode):
+        fn.launches = 0
+
+
+def check_launches(what: str, got: dict, expect: dict) -> None:
+    say(f"[{what}] codec launches {got}; expected {expect}: {got == expect}")
+    if got != expect:
+        fail(f"{what}: codec kernel launches {got} != expected {expect}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: Cassandra-2 (MX)
+# ---------------------------------------------------------------------------
+
+def exact_share(plain, packed, cass) -> tuple:
+    """(weight values the C-2 target view returns bit for bit, all packed
+    weight values): MX is exact only within a group's 2^8 exponent range."""
+    import torch
+    from repro_torch.core.format import target_weight
+    from repro_torch.kernels.draft_matmul import packed_shape
+    same = total = 0
+
+    def walk(p, q):
+        nonlocal same, total
+        if isinstance(q, dict) and "spec" in q and "verif" in q:
+            ws = p if p.ndim == 3 else p[None]
+            for r in range(ws.shape[0]):
+                one = (lambda t: t if p.ndim == 2 else t[r])
+                tw = target_weight({k: one(v) for k, v in q["spec"].items()},
+                                   {k: one(v) for k, v in q["verif"].items()},
+                                   cass, packed_shape(q))
+                same += int((tw.view(torch.int16)
+                             == ws[r].view(torch.int16)).sum())
+                total += tw.numel()
+        elif isinstance(q, dict):
+            for k in q:
+                walk(p[k], q[k])
+        elif isinstance(q, list):
+            for a, b in zip(p, q):
+                walk(a, b)
+
+    walk(plain, packed)
+    return same, total
+
+
+def c2_main_phase(cfg, args, prompt) -> dict:
+    """Cassandra-2 through ``Engine.generate`` at full width: spec tokens
+    equal AR steps of the C-2 target view at the verify width, bit for bit
+    on every position; mx_decode and kv_topk launch counts as the passes
+    imply."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params, params_nbytes
+    from repro_torch.launch.serve import format_line
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import Engine, EngineConfig, _run_drafts
+
+    cass = CassandraConfig(variant=2, gamma=3)
+    b, s, n, gamma = args.requests, args.prompt_len, args.max_new, cass.gamma
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    plain = init_params(cfg, gen, device="cuda")
+    packed = format_params(plain, cass)
+    torch.cuda.synchronize()
+    say(f"[c2] {cfg.name} {cfg.n_layers} layers, Cassandra-2 (mx_group "
+        f"{cass.mx_group}, draft bits {cass.mx_draft_bits}, KV group 16): "
+        f"init + format_params {time.perf_counter() - t0:.1f} s")
+    say(format_line(params_nbytes(packed)).replace("[format]", "[c2]"))
+    same, total = exact_share(plain, packed, cass)
+    say(f"[c2] the target view returns {same} of {total} weight values bit "
+        f"for bit ({same / total:.4%})")
+    del plain
+    torch.cuda.empty_cache()
+    codec = codec_mx_phase(packed, cfg, cass, prompt)
+
+    eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=gamma),
+                 device="cuda")
+    rt_t = dataclasses.replace(eng.rt, view="target")
+    cache = KC.init_cache(cfg, cass, b, s + n + gamma + 1, packed=True,
+                          device="cuda")
+    with torch.inference_mode():
+        lg, cache = M.forward_prefill(rt_t, packed, {"tokens": prompt}, cache)
+        lg = lg[:, -1]
+        wide, logits = ar_steps(rt_t, packed, cache, lg, n, gamma + 1)
+        if not torch.isfinite(logits).all():
+            fail("c2: target logits are not finite")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        M.forward_decode(rt_t, packed, wide[:, :gamma + 1], cache)
+        torch.cuda.synchronize()
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        verify_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _run_drafts(eng.rt, packed, cache,
+                    torch.argmax(lg, -1).to(torch.int32)[:, None], eng.ecfg)
+        torch.cuda.synchronize()
+        drafts_ms = (time.perf_counter() - t0) * 1e3
+        drafts_peak = torch.cuda.max_memory_allocated()
+    say(f"[c2] one verify pass (target view, width {gamma + 1}, "
+        f"{cfg.n_layers} layers): {verify_ms:.1f} ms; draft side of one "
+        f"cycle ({gamma} passes): {drafts_ms:.1f} ms; max_memory_allocated "
+        f"{verify_peak / 2**30:.2f} / {drafts_peak / 2**30:.2f} GiB over "
+        f"{resident / 2**30:.2f} GiB resident")
+    wide = wide.cpu().numpy()
+    del cache, lg, logits
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp, st = eng.generate({"tokens": prompt}, max_new=n, speculative=True)
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t0
+    launches = codec_launches()
+    peak = torch.cuda.max_memory_allocated()
+    sp = sp.cpu().numpy()
+    equal = int((sp[:, :n] == wide).sum())
+    say(f"[c2] lossless: spec == AR of the C-2 target view at the verify "
+        f"width {gamma + 1} on {equal} of {b * n} positions")
+    if equal != b * n:
+        fail(f"c2: spec tokens differ from AR at the verify width on "
+             f"{b * n - equal} positions")
+    cyc, units, layers = st["cycles"], decode_units(packed), cfg.n_layers
+    check_launches("c2", launches, {
+        "mx_decode": units * (1 + cyc) + 2 * layers * cyc
+        + gamma * cyc * units + 2 * cyc,
+        "kv_topk": 2 * (1 + cyc), "unary_decode": 0})
+    say(f"[c2] spec: cycles {cyc}, acceptance {st['acceptance']:.3f}, "
+        f"tokens/cycle {st['tokens_per_cycle']:.3f}, {b * n / sp_s:.2f} tok/s "
+        f"({sp_s:.1f} s); max_memory_allocated {peak / 2**30:.2f} GiB")
+    return {"launches": launches, "codec": codec}
+
+
+def c2_depth_phase(args, gen) -> None:
+    """Cassandra-2 through the paged Scheduler at 2 layers (full width),
+    attention kernel off: every request its tokens; overlap on == off and
+    fused == alternating bit for bit; launch counts as the passes imply;
+    the attention kernel refuses C-2 with the reference's limitation."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    cass = CassandraConfig(variant=2, gamma=3)
+    n, gamma = args.max_new, cass.gamma
+    packed = format_params(init_params(cfg, gen, device="cuda"), cass)
+    prompt = torch.randint(0, cfg.vocab_size, (args.requests,
+                                               args.prompt_len),
+                           generator=gen, device="cuda").to(torch.int32)
+    runs = {}
+    for name, kw in (("fused", {}), ("overlap off", {"overlap": False}),
+                     ("alternating", {"fused": False})):
+        reset_launches()
+        sched, tokens, _, wall = serve_paged(cfg, packed, cass, prompt, n,
+                                             **kw)
+        runs[name] = tokens
+        say(f"[c2-sched] {name}: {tokens.shape[0]} x {n} tokens in "
+            f"{wall:.1f} s")
+        if name == "fused":
+            got = codec_launches()
+            st = sched.summary()
+            targets = st["cycles"]
+            unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
+            units = decode_units(packed)
+            check_launches("c2-sched", got, {
+                "mx_decode": targets * (units + 2 * cfg.n_layers)
+                + gamma * unified * units + 2 * unified,
+                "kv_topk": 2 * targets, "unary_decode": 0})
+    for other in ("overlap off", "alternating"):
+        same = np.array_equal(runs[other], runs["fused"])
+        say(f"[c2-sched] {other} == fused with overlap, bit for bit: {same}")
+        if not same:
+            fail(f"c2-sched: tokens with {other} differ")
+    try:
+        serve_paged(cfg, packed, cass, prompt, n, attn_kernel="on")
+    except ValueError as e:
+        if "exp_words" not in str(e):
+            raise
+        say(f"[c2-sched] attn_kernel='on' refused: {e}")
+    else:
+        fail("c2-sched: attn_kernel='on' with Cassandra-2 was not refused")
+
+
+# ---------------------------------------------------------------------------
 
 def run(args) -> None:
     import torch
@@ -981,17 +1427,31 @@ def run(args) -> None:
     gen2 = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     # 4b. paged kernels against their plain versions
     paged = paged_phase(packed, cfg, cass, main["prompt"], args.max_new, gen2)
+    # 4c. unary_decode and kv_topk against their plain versions (inputs
+    # from a generator of their own: phase 8 draws from gen2 as before)
+    codec = codec_c1_phase(packed, cfg, cass, main["prompt"],
+                           torch.Generator(device="cuda").manual_seed(
+                               args.seed + 2))
     # 7. the paged scheduler at full width
     sched = sched_phase(packed, cfg, cass, args, main, paged, agg)
     say(f"[sched] max_memory_allocated during the scheduler run "
         f"{sched['peak'] / 2**30:.2f} GiB")
     del packed
+    gc.collect()                  # no C-1 tensor outlives its phases
     torch.cuda.empty_cache()
     # 8. the scheduler's bitwise gates at 2 layers
     depth_phase(args, gen2)
+    # 9. Cassandra-2 through the Engine at full width (mx_decode checked
+    # against its plain version there, on the C-2 model's own weights)
+    c2 = c2_main_phase(cfg, args, main["prompt"])
+    codec += c2["codec"]
+    torch.cuda.empty_cache()
+    # 10. Cassandra-2 through the paged scheduler at 2 layers
+    c2_depth_phase(args, gen2)
 
-    # 9. report
-    say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed"]')
+    # 11. report
+    say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
+        '"mx_decode", "kv_topk", "unary_decode"]')
     line = {"kernels": [{
         "name": "draft_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/draft_matmul.cu",
@@ -1017,6 +1477,28 @@ def run(args) -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # the codec kernels at their main-path shape: the w_gate target lanes
+    # (mx_decode), a prefill's K (kv_topk), w_gate's kept exponent regions
+    # (unary_decode); launches from the C-2 run (mx_decode, kv_topk) and
+    # from phase 6's C-1 run (unary_decode)
+    for name, file, line_no, case, launches in (
+            ("mx_decode", "mx_decode", 46, "w_gate target",
+             c2["launches"]["mx_decode"]),
+            ("kv_topk", "kv_topk", 43, "prefill K",
+             c2["launches"]["kv_topk"]),
+            ("unary_decode", "unary_decode", 51, "w_gate kept",
+             main["codec"]["unary_decode"])):
+        rows = [r for r in codec if r["kernel"] == name]
+        row = next(r for r in rows if r["case"].startswith(case))
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{file}.cu",
+            "replaces": f"src/repro/kernels/{file}.py:{line_no}",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
     for k in line["kernels"]:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

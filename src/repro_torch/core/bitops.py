@@ -29,13 +29,18 @@ def bf16_to_bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int16).to(torch.int32) & 0xFFFF
 
 
-def bits_to_bf16(bits: torch.Tensor) -> torch.Tensor:
-    """Bitcast a 16-bit pattern (any integer dtype) -> bf16."""
+def as_int16(bits: torch.Tensor) -> torch.Tensor:
+    """A 16-bit pattern (any integer dtype) as an int16 bit-view."""
     if bits.dtype == torch.int16:
-        return bits.view(torch.bfloat16)
+        return bits
     b = bits.to(torch.int32) & 0xFFFF
     b = b - ((b & 0x8000) << 1)                 # two's-complement int16 range
-    return b.to(torch.int16).view(torch.bfloat16)
+    return b.to(torch.int16)
+
+
+def bits_to_bf16(bits: torch.Tensor) -> torch.Tensor:
+    """Bitcast a 16-bit pattern (any integer dtype) -> bf16."""
+    return as_int16(bits).view(torch.bfloat16)
 
 
 def split_fields(x: torch.Tensor):
@@ -114,9 +119,25 @@ def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
     return out[..., :n].to(torch.bool)
 
 
+def _code_bits(codes: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., K) integer codes -> (..., K, width) uint8 bits, LSB first,
+    expanded a byte at a time (one byte per bit, never a wider type)."""
+    if width <= 8:
+        c = codes.to(torch.uint8)
+        return (c[..., None] >> _shifts(width, c)) & 1
+    c = codes.to(torch.int32)
+    parts = []
+    for lo in range(0, width, 8):
+        byte = ((c >> lo) & 0xFF).to(torch.uint8)
+        parts.append((byte[..., None] >> _shifts(min(8, width - lo), byte))
+                     & 1)
+    return torch.cat(parts, dim=-1)
+
+
 def pack_codes(codes: torch.Tensor, width: int,
                n_bits: int | None = None) -> torch.Tensor:
-    """Pack (..., K) integer codes of ``width`` bits into int32 words.
+    """Pack (..., K) integer codes of ``width`` (<= 32) bits into int32
+    words.
 
     ``n_bits`` (default: K*width rounded up to 32) fixes the region size.
     Little-endian bit order within the region.
@@ -127,14 +148,8 @@ def pack_codes(codes: torch.Tensor, width: int,
                            device=codes.device)
     if n_bits is None:
         n_bits = ((k * width + 31) // 32) * 32
-    if width <= 8:
-        c = codes.to(torch.uint8)
-        bits = (c[..., None] >> _shifts(width, c)) & 1
-    else:
-        c = codes.to(torch.int64)
-        sh = torch.arange(width, dtype=torch.int64, device=c.device)
-        bits = (c[..., None] >> sh) & 1
-    flat = bits.reshape(*codes.shape[:-1], k * width).to(torch.bool)
+    flat = _code_bits(codes, width).reshape(*codes.shape[:-1],
+                                            k * width).to(torch.bool)
     pad = n_bits - k * width
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
@@ -142,16 +157,17 @@ def pack_codes(codes: torch.Tensor, width: int,
 
 
 def unpack_codes(words: torch.Tensor, width: int, k: int) -> torch.Tensor:
-    """Inverse of :func:`pack_codes`; returns (..., K) int32 codes."""
+    """Inverse of :func:`pack_codes`; returns (..., K) int32 codes,
+    assembled a byte of code bits at a time."""
     if width == 0 or k == 0:
         return torch.zeros((*words.shape[:-1], k), dtype=torch.int32,
                            device=words.device)
     bits = unpack_bits(words, words.shape[-1] * 32)
     sel = bits[..., : k * width].reshape(*bits.shape[:-1], k, width)
-    if width <= 8:
-        s = sel.to(torch.uint8)
-        return (s << _shifts(width, s)).sum(-1, dtype=torch.uint8).to(
+    out = None
+    for lo in range(0, width, 8):
+        s = sel[..., lo:lo + 8].to(torch.uint8)
+        byte = (s << _shifts(s.shape[-1], s)).sum(-1, dtype=torch.uint8).to(
             torch.int32)
-    s = sel.to(torch.int64)
-    sh = torch.arange(width, dtype=torch.int64, device=s.device)
-    return (s << sh).sum(-1).to(torch.int32)
+        out = byte if out is None else out | (byte << lo)
+    return out

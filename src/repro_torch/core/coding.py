@@ -7,18 +7,18 @@ value. A per-block 1-bit mode selects the representation:
 * ``mode 1`` — ``exp_bits``-wide delta from the block's max exponent
   (draft-approximate; a correction on the verification side restores it).
 
-The unary decode here is a prefix-sum scatter instead of the reference's
-``argsort(~bits)``: the destination of every bit position is computed with
-two cumulative sums (set bits first, then clear bits, each in position
-order — exactly the stable argsort's permutation), so the ranks are the
-reference's bit for bit on every input, without a sort's int64 index
-tensor the size of the stream.
+The unary ranks decode through ``kernels/unary_decode.py`` (the CUDA
+kernel on the card; its plain version, a prefix sum and a search, on the
+CPU): the ranks of the reference's ``unary_decode_block`` on every
+unary-mode region. The two differ only on regions with fewer than K set
+bits — delta-mode regions, whose ranks ``decode_exponents`` discards.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import bitops
+from repro_torch.kernels import unary_decode as UD
 
 MAX_RANK = 32
 CORR_BITS = 4
@@ -67,29 +67,6 @@ def unary_encode_block(ranks: torch.Tensor, n_bits: int):
                        device=ranks.device)
     bits.scatter_(-1, pos, True)
     return bits, ok
-
-
-def unary_decode_block(bits: torch.Tensor, k: int) -> torch.Tensor:
-    """Decode a unary bitstream (..., n_bits) into uint8 ranks (..., K).
-
-    Bit position p goes to slot ``ones_before(p)`` if set, else to
-    ``n_ones + zeros_before(p)`` — the stable argsort of ``~bits``. Only
-    slots < K are kept; ``rank_j = pos_j - pos_{j-1} - 1``.
-    """
-    n_bits = bits.shape[-1]
-    ones = torch.cumsum(bits, dim=-1, dtype=torch.int32)
-    zeros = torch.arange(1, n_bits + 1, dtype=torch.int32,
-                         device=bits.device) - ones
-    dest = torch.where(bits, ones - 1, ones[..., -1:] + zeros - 1)
-    dest = torch.where(dest < k, dest, k).to(torch.int64)
-    pos = torch.arange(n_bits, dtype=torch.int32, device=bits.device)
-    positions = torch.zeros((*bits.shape[:-1], k + 1), dtype=torch.int32,
-                            device=bits.device)
-    positions.scatter_(-1, dest, pos.expand_as(dest))
-    positions = positions[..., :k]
-    prev = torch.cat([torch.full_like(positions[..., :1], -1),
-                      positions[..., :-1]], dim=-1)
-    return (positions - prev - 1).clamp(0, MAX_RANK - 1).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +166,7 @@ def decode_exponents(region: dict, exp_of_rank: torch.Tensor, k: int,
     """
     n_bits = region_words(k, exp_bits) * 32
     bits = bitops.unpack_bits(region["words"], n_bits)
-    uranks = unary_decode_block(bits, k)
+    uranks = UD.unary_decode(region["words"].contiguous(), k)
     uexps = exp_of_rank[uranks.to(torch.int64)]
     dcodes = _unpack_fixed(bits, exp_bits, k)
     corr = None

@@ -13,8 +13,18 @@ alone; ``target_*`` rebuilds the tensor bit-exactly from both. Weights are
 blocked along their input (reduction) dimension per output column; KV
 vectors per (token, head). Keys, shapes and word layouts are the
 reference's; uint32 words are int32 bit-views and ``pruned_raw`` is an
-int16 bit-view of its uint16 payload. Cassandra-2 (MX) raises until its
-slice (ROADMAP Queue 1 step 9).
+int16 bit-view of its uint16 payload.
+
+Cassandra-2 (``variant=2``) keeps the kept values as MX lanes
+(``core/mx.py``): the speculation side holds the sign and the top
+``mx_draft_bits`` of each 16-bit container plus the shared exponents, the
+verification side the container's low bits and the raw pruned values; the
+target view is exact within an MX group's 2^8 exponent range. Both views
+decode through ``kernels/mx_decode.py`` (the CUDA kernel on the card).
+
+Selections that span the whole vector with magnitude scores (the KV
+encode) run through ``kernels/kv_topk.py``, and the unary exponent decode
+through ``kernels/unary_decode.py`` (``core/coding.py``).
 """
 from __future__ import annotations
 
@@ -22,16 +32,15 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import bitops, coding, pruning
-
-_C2 = ("Cassandra-2 (MX) is not ported yet: ROADMAP Queue 1 step 9 "
-       "(core/mx.py and format.py variant 2)")
+from repro_torch.core import bitops, coding, mx, pruning
+from repro_torch.kernels import kv_topk as KT
+from repro_torch.kernels import mx_decode as MXD
 
 
 @dataclasses.dataclass(frozen=True)
 class CassandraConfig:
     """Hyper-parameters of the format (paper defaults: 40% prune, 4-bit trunc)."""
-    variant: int = 1
+    variant: int = 1              # 1 = unary/lossless, 2 = MX
     weight_prune: float = 0.4
     kv_prune: float = 0.4
     weight_trunc: int = 4
@@ -60,11 +69,6 @@ class CassandraConfig:
 PAPER_DEFAULT = CassandraConfig()
 
 
-def _require_c1(variant: int) -> None:
-    if variant != 1:
-        raise NotImplementedError(_C2)
-
-
 # ---------------------------------------------------------------------------
 # Shared partition machinery
 # ---------------------------------------------------------------------------
@@ -72,22 +76,47 @@ def _require_c1(variant: int) -> None:
 def _split_kept(kept: torch.Tensor, trunc: int, variant: int, group: int,
                 draft_bits: int):
     """Split kept bf16 values (..., K) into draft/verification payloads."""
-    _require_c1(variant)
-    t_keep = bitops.MANT_BITS - trunc
-    sign, exp, mant = bitops.split_fields(kept)
-    mant_hi = mant >> trunc
-    mant_lo = mant & ((1 << trunc) - 1)
-    code = (sign << t_keep) | mant_hi
-    spec = {"signmant": bitops.pack_codes(code, 1 + t_keep), "exp": exp}
-    verif = {"mant_lo": bitops.pack_codes(mant_lo, trunc)}
+    if variant == 1:
+        t_keep = bitops.MANT_BITS - trunc
+        sign, exp, mant = bitops.split_fields(kept)
+        mant_hi = mant >> trunc
+        mant_lo = mant & ((1 << trunc) - 1)
+        code = (sign << t_keep) | mant_hi
+        spec = {"signmant": bitops.pack_codes(code, 1 + t_keep), "exp": exp}
+        verif = {"mant_lo": bitops.pack_codes(mant_lo, trunc)}
+        return spec, verif
+    # Cassandra-2: MX
+    enc = mx.mx_encode(kept, group=group)
+    m16 = enc["m16"].to(torch.int32) & 0xFFFF
+    lo_bits = mx.CONTAINER_BITS - draft_bits
+    code = (enc["sign"].to(torch.int32) << draft_bits) | (m16 >> lo_bits)
+    spec = {"signmant": bitops.pack_codes(code, 1 + draft_bits),
+            "shared_exp": enc["shared_exp"]}
+    verif = {"mant_lo": bitops.pack_codes(m16 & ((1 << lo_bits) - 1),
+                                          lo_bits)}
     return spec, verif
+
+
+def _mx_lanes(spec: dict, k: int, draft_bits: int, group: int,
+              m_lo=None) -> torch.Tensor:
+    """Decode C-2 kept values: the draft view from the speculation codes
+    alone, the target view with the container's low bits ``m_lo``."""
+    code = bitops.unpack_codes(spec["signmant"], 1 + draft_bits, k)
+    lo_bits = mx.CONTAINER_BITS - draft_bits
+    m16 = (code & ((1 << draft_bits) - 1)) << lo_bits
+    if m_lo is not None:
+        m16 = m16 | m_lo
+    sign = ((code >> draft_bits) & 1).to(torch.uint8)
+    return MXD.mx_decode(sign, bitops.as_int16(m16), spec["shared_exp"],
+                         group)
 
 
 def _join_kept_draft(spec: dict, k: int, trunc: int, variant: int, group: int,
                      draft_bits: int, exp_of_rank, exp_bits: int,
                      corr_bits: int = coding.CORR_BITS) -> torch.Tensor:
     """Reconstruct the draft view of kept values (low mantissa zeroed)."""
-    _require_c1(variant)
+    if variant != 1:
+        return _mx_lanes(spec, k, draft_bits, group)
     t_keep = bitops.MANT_BITS - trunc
     code = bitops.unpack_codes(spec["signmant"], 1 + t_keep, k)
     sign = (code >> t_keep) & 1
@@ -103,8 +132,11 @@ def _join_kept_target(spec: dict, verif: dict, k: int, trunc: int,
                       variant: int, group: int, draft_bits: int, exp_of_rank,
                       exp_bits: int,
                       corr_bits: int = coding.CORR_BITS) -> torch.Tensor:
-    """Reconstruct kept values bit-exactly."""
-    _require_c1(variant)
+    """Reconstruct kept values exactly (C-1) / MX-container-exactly (C-2)."""
+    if variant != 1:
+        m_lo = bitops.unpack_codes(verif["mant_lo"],
+                                   mx.CONTAINER_BITS - draft_bits, k)
+        return _mx_lanes(spec, k, draft_bits, group, m_lo)
     t_keep = bitops.MANT_BITS - trunc
     code = bitops.unpack_codes(spec["signmant"], 1 + t_keep, k)
     sign = (code >> t_keep) & 1
@@ -121,22 +153,40 @@ def _join_kept_target(spec: dict, verif: dict, k: int, trunc: int,
 # Tensor-level format
 # ---------------------------------------------------------------------------
 
-def format_tensor(x: torch.Tensor, scores: torch.Tensor, cfg: CassandraConfig,
+def _select(x: torch.Tensor, scores, keep: int, block: int) -> dict:
+    """The top-k partition of ``format_tensor``. ``scores`` None ranks by
+    magnitude (|x| in f32); a magnitude selection with one block per vector
+    (the KV encode) runs through ``kernels.kv_topk``."""
+    if scores is None and block == x.shape[-1]:
+        sel = KT.kv_topk(x.contiguous(), keep)
+        return {"bitmap": sel["bitmap"][..., None, :],
+                "kept": sel["kept"][..., None, :],
+                "pruned": sel["pruned"][..., None, :]}
+    if scores is None:
+        scores = x.to(torch.float32).abs()
+    return pruning.select_topk_blocked(x, scores, keep, block)
+
+
+def format_tensor(x: torch.Tensor, scores, cfg: CassandraConfig,
                   block: int, keep: int, group: int, trunc: int,
                   codebook=None, corr_bits: int = coding.CORR_BITS,
                   pruned_raw: bool = False):
     """Partition (..., N) bf16 into (speculation, verification) dicts.
 
-    ``codebook`` — optional external (exp_of_rank, rank_of_exp) pair (the
-    online KV encoder's cache-global book); per-tensor books are built when
-    None. ``pruned_raw`` stores pruned values as raw 16-bit patterns.
+    ``scores`` — (..., N) selection scores, or None for the magnitude
+    |x| (see ``_select``). ``codebook`` — optional external (exp_of_rank,
+    rank_of_exp) pair (the online KV encoder's cache-global book);
+    per-tensor books are built when None. ``pruned_raw`` stores pruned
+    values as raw 16-bit patterns (always so for Cassandra-2).
     """
-    _require_c1(cfg.variant)
     x = x.to(torch.bfloat16)
-    sel = pruning.select_topk_blocked(x, scores, keep, block)
+    sel = _select(x, scores, keep, block)
     spec, verif = _split_kept(sel["kept"], trunc, cfg.variant, group,
                               cfg.mx_draft_bits)
     spec["bitmap"] = sel["bitmap"]
+    if cfg.variant != 1:
+        verif["pruned_raw"] = sel["pruned"].contiguous().view(torch.int16)
+        return spec, verif
     kept_exp = spec.pop("exp")
     if codebook is None:
         exp_of_rank, rank_of_exp = coding.build_codebook(kept_exp)
@@ -193,7 +243,7 @@ def target_tensor(spec: dict, verif: dict, cfg: CassandraConfig, block: int,
                              cfg.mx_draft_bits, book, cfg.exp_bits, corr_bits)
     if keep == block:
         return pruning.desparsify(spec["bitmap"], kept, block)
-    if "pruned_raw" not in verif:
+    if cfg.variant == 1 and "pruned_raw" not in verif:
         pbook = verif.get("pruned_codebook")
         if pbook is None and codebook is not None:
             pbook = codebook[0]
@@ -229,9 +279,10 @@ def _trim_lossless(spec: dict, verif: dict, variant: int):
     return spec, verif
 
 
-# Row chunk for whole-weight reconstruction: a chunk of output columns of
-# a packed weight decodes with transients of a few hundred MB at the
-# paper defaults; lm_head (128256 columns) is decoded in 8 such pieces.
+# Row chunk for whole-weight decodes: a chunk of output columns of a packed
+# weight decodes with transients of a few hundred MB (C-1) to about a GB
+# (C-2's 12-bit low containers) at the paper defaults; lm_head (128256
+# columns) is decoded in 8 such pieces.
 ROW_CHUNK = 16384
 _SHARED_LEAVES = ("codebook", "pruned_codebook")
 
@@ -257,31 +308,35 @@ def format_weight(w: torch.Tensor, act_norm, cfg: CassandraConfig):
     return _trim_lossless(spec, verif, cfg.variant)
 
 
+def _by_rows(decode, trees: tuple, shape: tuple[int, int]) -> torch.Tensor:
+    """An (in, out) weight decoded ``ROW_CHUNK`` output columns at a time,
+    so the unpacking transients stay bounded."""
+    n_in, n_out = shape
+    wt = torch.empty((n_out, n_in), dtype=torch.bfloat16,
+                     device=trees[0]["bitmap"].device)
+    for lo in range(0, n_out, ROW_CHUNK):
+        hi = min(lo + ROW_CHUNK, n_out)
+        wt[lo:hi] = decode(*(slice_rows(t, lo, hi) for t in trees))
+    return wt.T
+
+
 def draft_weight(spec: dict, cfg: CassandraConfig,
                  shape: tuple[int, int]) -> torch.Tensor:
-    n_in, n_out = shape
-    block = cfg.weight_block(n_in)
+    block = cfg.weight_block(shape[0])
     keep = cfg.weight_keep(block)
-    wt = draft_tensor(spec, cfg, block, keep, cfg.mx_group,
-                      cfg.weight_trunc, n_in)
-    return wt.reshape(n_out, n_in).T
+    return _by_rows(lambda s: draft_tensor(s, cfg, block, keep, cfg.mx_group,
+                                           cfg.weight_trunc, shape[0]),
+                    (spec,), shape)
 
 
 def target_weight(spec: dict, verif: dict, cfg: CassandraConfig,
                   shape: tuple[int, int]) -> torch.Tensor:
-    """Exact (in, out) weight, decoded ``ROW_CHUNK`` output columns at a
-    time so the unpacking transients stay bounded."""
-    n_in, n_out = shape
-    block = cfg.weight_block(n_in)
+    block = cfg.weight_block(shape[0])
     keep = cfg.weight_keep(block)
-    wt = torch.empty((n_out, n_in), dtype=torch.bfloat16,
-                     device=spec["bitmap"].device)
-    for lo in range(0, n_out, ROW_CHUNK):
-        hi = min(lo + ROW_CHUNK, n_out)
-        wt[lo:hi] = target_tensor(slice_rows(spec, lo, hi),
-                                  slice_rows(verif, lo, hi), cfg, block,
-                                  keep, cfg.mx_group, cfg.weight_trunc, n_in)
-    return wt.T
+    return _by_rows(lambda s, v: target_tensor(s, v, cfg, block, keep,
+                                               cfg.mx_group, cfg.weight_trunc,
+                                               shape[0]),
+                    (spec, verif), shape)
 
 
 def kv_group(cfg: CassandraConfig, head_dim: int) -> int:
@@ -294,10 +349,8 @@ def kv_group(cfg: CassandraConfig, head_dim: int) -> int:
 def format_kv(kv: torch.Tensor, cfg: CassandraConfig):
     """Format a (..., head_dim) KV tensor with per-token magnitude pruning."""
     d = kv.shape[-1]
-    keep = cfg.kv_keep(d)
-    scores = kv.to(torch.float32).abs()
-    spec, verif = format_tensor(kv, scores, cfg, d, keep, kv_group(cfg, d),
-                                cfg.kv_trunc)
+    spec, verif = format_tensor(kv, None, cfg, d, cfg.kv_keep(d),
+                                kv_group(cfg, d), cfg.kv_trunc)
     return _trim_lossless(spec, verif, cfg.variant)
 
 

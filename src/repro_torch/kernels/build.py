@@ -87,3 +87,33 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     (built,) = build_all([name])
     return ctypes.CDLL(str(built.path))
+
+
+def entry(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
+    """``symbol`` of ``csrc/<name>.cu`` as a ctypes function taking
+    ``n_ptr`` pointers, ``n_int`` ints, ``n_float`` floats and the stream,
+    returning the CUDA error code of its launch."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(t, name: str, dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}, not on the card")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -21,12 +21,12 @@ says how the design meets it.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core import bitops, coding, pruning
-from repro_torch.core.format import ROW_CHUNK, CassandraConfig, slice_rows
+from repro_torch.core.format import (ROW_CHUNK, CassandraConfig, draft_weight,
+                                     slice_rows)
+from repro_torch.kernels import build
 
 ESC = 7
 
@@ -58,9 +58,9 @@ def prepare_draft_operands(spec: dict, cass: CassandraConfig,
     output columns at a time.
     """
     if cass.variant != 1:
-        raise NotImplementedError(
-            "the draft kernel is Cassandra-1 only; Cassandra-2 is ROADMAP "
-            "Queue 1 step 9")
+        raise ValueError("the draft kernel reads Cassandra-1 operands; a "
+                         "Cassandra-2 weight decodes through "
+                         "format.draft_weight (packed_matmul)")
     n_in, n_out = shape
     keep = cass.weight_keep(cass.weight_block(n_in))
     parts = [_prepare_rows(slice_rows(spec, lo, min(lo + ROW_CHUNK, n_out)),
@@ -82,7 +82,11 @@ def packed_shape(w: dict) -> tuple[int, int]:
 def prepare_params(params, cass: CassandraConfig):
     """Add a ``"kernel"`` dict (``exp3``/``emax``/``book``) beside every
     packed weight's spec that lacks one; stacked (R, …) specs are prepared
-    layer by layer."""
+    layer by layer. Cassandra-2 weights have no draft-kernel operands and
+    are returned as they are."""
+    if cass.variant != 1:
+        return params
+
     def prep(w):
         spec = w["spec"]
         shape = packed_shape(w)
@@ -141,20 +145,8 @@ def draft_matmul_plain(x, bitmap, signmant, exp3, emax, book, *, block: int,
 # Wrapper
 # ---------------------------------------------------------------------------
 
-def _check(t: torch.Tensor, name: str, dtype, shape: tuple) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} is on {t.device}, x is on the card")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _launch(x, bitmap, signmant, exp3, emax, book, *, block, keep, trunc,
             exp_bits) -> torch.Tensor:
-    from repro_torch.kernels import build    # nvcc only when launching
     if exp_bits != 3:
         raise ValueError(f"the kernel reads 3-bit rank codes (exp_bits={exp_bits})")
     if not 0 <= trunc <= 7:
@@ -165,24 +157,19 @@ def _launch(x, bitmap, signmant, exp3, emax, book, *, block, keep, trunc,
         raise ValueError(f"x has K={k} but the weight {nb}x{block}")
     wsm = coding.region_words(keep, 1 + bitops.MANT_BITS - trunc)
     we = coding.region_words(keep, exp_bits)
-    _check(x, "x", torch.bfloat16, (m, k))
-    _check(bitmap, "bitmap", torch.int32, (n, nb, block // 32))
-    _check(signmant, "signmant", torch.int32, (n, nb, wsm))
-    _check(exp3, "exp3", torch.int32, (n, nb, we))
-    _check(emax, "emax", torch.int32, (n, nb))
-    _check(book, "book", torch.int32, (8,))
+    build.check(x, "x", torch.bfloat16, (m, k))
+    build.check(bitmap, "bitmap", torch.int32, (n, nb, block // 32))
+    build.check(signmant, "signmant", torch.int32, (n, nb, wsm))
+    build.check(exp3, "exp3", torch.int32, (n, nb, we))
+    build.check(emax, "emax", torch.int32, (n, nb))
+    build.check(book, "book", torch.int32, (8,))
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = build.load("draft_matmul").cassandra_draft_matmul
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn = build.entry("draft_matmul", "cassandra_draft_matmul", 7, 8)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), bitmap.data_ptr(), signmant.data_ptr(),
              exp3.data_ptr(), emax.data_ptr(), book.data_ptr(), y.data_ptr(),
              m, k, n, block, keep, trunc, wsm, we, stream)
-    if err != 0:
-        raise RuntimeError(f"draft_matmul kernel launch failed: CUDA error {err}")
+    build.raise_on(err, "draft_matmul")
     draft_matmul.launches += 1
     return y
 
@@ -207,8 +194,17 @@ draft_matmul.launches = 0
 
 def packed_matmul(x: torch.Tensor, w: dict,
                   cass: CassandraConfig) -> torch.Tensor:
-    """x (..., K) @ draft weight of a prepared packed weight ``w``, cast to
-    ``x.dtype`` (the reference's ``ops.draft_matmul``)."""
+    """x (..., K) @ draft weight of a packed weight ``w``, cast to
+    ``x.dtype`` (the reference's ``ops.draft_matmul``).
+
+    Cassandra-1 runs the draft kernel on the prepared operands.
+    Cassandra-2, as in the reference, decodes the draft weight
+    (``format.draft_weight``, through the MX decode kernel) and multiplies
+    in f32 outside any kernel."""
+    if cass.variant != 1:
+        wd = draft_weight(w["spec"], cass, packed_shape(w))
+        y = torch.matmul(x.to(torch.float32), wd.to(torch.float32))
+        return y.to(x.dtype)
     if "kernel" not in w:
         raise ValueError("packed weight has no prepared kernel operands: "
                          "run kernels.draft_matmul.prepare_params first")

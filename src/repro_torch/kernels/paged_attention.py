@@ -27,11 +27,11 @@ Packed words are int32 bit-views; every right shift is masked.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core import bitops
+from repro_torch.kernels import build
+from repro_torch.kernels.unary_decode import ranks_from_bits
 
 NEG_INF = -1e30
 # unused table slots point at block 0, the trash block (the allocator's
@@ -66,20 +66,6 @@ def _unpack_codes32(words: torch.Tensor, width: int, k: int) -> torch.Tensor:
     return (bits << shifts).sum(-1, dtype=torch.int32)
 
 
-def _unary_ranks(bits: torch.Tensor, keep: int) -> torch.Tensor:
-    """Unary rank decode of the (R, n) 0/1 stream -> (R, keep) ranks in
-    [0, 31]. ``pos[j]`` counts the positions whose running count of ones
-    is below j+1 (the strict compare: the 0-indexed position of the
-    (j+1)-th set bit, n when there are fewer); the running count is
-    non-decreasing, so the count is a left-sided search."""
-    idx = torch.cumsum(bits, dim=-1, dtype=torch.int32)
-    ks = torch.arange(1, keep + 1, dtype=torch.int32, device=bits.device)
-    pos = torch.searchsorted(idx, ks.expand(bits.shape[0], keep).contiguous(),
-                             side="left").to(torch.int32)
-    prev = torch.cat([torch.full_like(pos[:, :1], -1), pos[:, :-1]], dim=-1)
-    return (pos - prev - 1).clamp(0, 31)
-
-
 def _decode_kv_rows(bitmap, signmant, exp_words, mode, emax, book32, *,
                     d: int, keep: int, trunc: int,
                     exp_bits: int) -> torch.Tensor:
@@ -96,7 +82,7 @@ def _decode_kv_rows(bitmap, signmant, exp_words, mode, emax, book32, *,
     sign = (code >> t_keep) & 1
     mant = (code & ((1 << t_keep) - 1)) << trunc
     ebits = _unpack_bits32(exp_words, exp_words.shape[1] * 32)
-    uexp = book32[_unary_ranks(ebits, keep).to(torch.int64)]
+    uexp = book32[ranks_from_bits(ebits, keep).to(torch.int64)]
     dshift = torch.arange(exp_bits, dtype=torch.int32, device=bitmap.device)
     dcodes = (ebits[:, :keep * exp_bits].reshape(r, keep, exp_bits)
               << dshift).sum(-1, dtype=torch.int32)
@@ -213,47 +199,20 @@ def merge_gqa_suffix(acc, m, l, q, suf_k, suf_v, suf_valid, *,
 _LEAVES = ("bitmap", "signmant", "exp_words", "exp_mode", "exp_emax")
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape: tuple) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} is on {t.device}, q is on the card")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _check_walk(q, table, length, nb: int, bs: int):
     b, t, hkv, g, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernels take {HEAD_DIMS}")
     if not 1 <= bs <= MAX_BLOCK_SIZE:
         raise ValueError(f"block size {bs} outside [1, {MAX_BLOCK_SIZE}]")
-    _check(q, "q", torch.bfloat16, (b, t, hkv, g, d))
-    _check(table, "table", torch.int32, (b, table.shape[1]))
-    _check(length, "length", torch.int32, (b,))
+    build.check(q, "q", torch.bfloat16, (b, t, hkv, g, d))
+    build.check(table, "table", torch.int32, (b, table.shape[1]))
+    build.check(length, "length", torch.int32, (b,))
     out = (torch.empty((b, hkv, g, t, d), dtype=torch.float32,
                        device=q.device),
            torch.empty((b, hkv, g, t), dtype=torch.float32, device=q.device),
            torch.empty((b, hkv, g, t), dtype=torch.float32, device=q.device))
     return (b, t, hkv, g, d, nb, bs, table.shape[1]), out
-
-
-def _fn(name: str, n_ptr: int, n_int: int, floats: int = 0):
-    from repro_torch.kernels import build    # nvcc only when launching
-    fn = getattr(build.load("paged_gqa"), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * floats + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _spec_words(spec: dict, nb: int, bs: int, hkv: int, *, d: int,
@@ -267,7 +226,7 @@ def _spec_words(spec: dict, nb: int, bs: int, hkv: int, *, d: int,
               "exp_mode": (nb, bs, hkv, 1), "exp_emax": (nb, bs, hkv, 1)}
     for k in _LEAVES:
         dtype = torch.uint8 if k in ("exp_mode", "exp_emax") else torch.int32
-        _check(spec[k], k, dtype, shapes[k])
+        build.check(spec[k], k, dtype, shapes[k])
     return [spec[k].data_ptr() for k in _LEAVES], wsm, we
 
 
@@ -293,14 +252,14 @@ def paged_gqa(q, k_pool, v_pool, table, length, *, scale: float):
         raise ValueError(f"paged_gqa: unsupported device {q.device}")
     nb, bs = k_pool.shape[:2]
     dims, (acc, m, l) = _check_walk(q, table, length, nb, bs)
-    _check(k_pool, "k_pool", torch.bfloat16, (nb, bs, dims[2], dims[4]))
-    _check(v_pool, "v_pool", torch.bfloat16, (nb, bs, dims[2], dims[4]))
-    fn = _fn("paged_gqa_launch", 8, 8, floats=1)
+    build.check(k_pool, "k_pool", torch.bfloat16, (nb, bs, dims[2], dims[4]))
+    build.check(v_pool, "v_pool", torch.bfloat16, (nb, bs, dims[2], dims[4]))
+    fn = build.entry("paged_gqa", "paged_gqa_launch", 8, 8, 1)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              table.data_ptr(), length.data_ptr(), acc.data_ptr(),
              m.data_ptr(), l.data_ptr(), *dims, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "paged_gqa")
+    build.raise_on(err, "paged_gqa")
     paged_gqa.launches += 1
     return acc, m, l
 
@@ -327,12 +286,12 @@ def paged_gqa_packed(q, k_spec: dict, v_spec: dict, table, length, book, *,
         raise ValueError(f"q has head dim {dims[4]}, the pool {d}")
     kp, wsm, we = _spec_words(k_spec, nb, bs, dims[2], **kw)
     vp, _, _ = _spec_words(v_spec, nb, bs, dims[2], **kw)
-    fn = _fn("paged_gqa_packed_launch", 17, 13, floats=1)
+    fn = build.entry("paged_gqa", "paged_gqa_packed_launch", 17, 13, 1)
     err = fn(q.data_ptr(), *kp, *vp, book.data_ptr(), table.data_ptr(),
              length.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
              *dims, keep, trunc, exp_bits, wsm, we, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "paged_gqa_packed")
+    build.raise_on(err, "paged_gqa_packed")
     paged_gqa_packed.launches += 1
     return acc, m, l
 
@@ -356,11 +315,11 @@ def decode_spec_pool(spec: dict, book, *, d: int, keep: int, trunc: int,
     ptrs, wsm, we = _spec_words(spec, nb, bs, hkv, **kw)
     out = torch.empty((nb, bs, hkv, d), dtype=torch.bfloat16,
                       device=leaf.device)
-    fn = _fn("decode_spec_rows_launch", 7, 7)
+    fn = build.entry("paged_gqa", "decode_spec_rows_launch", 7, 7)
     err = fn(*ptrs, book.data_ptr(), out.data_ptr(), nb * bs * hkv, d, keep,
              trunc, exp_bits, wsm, we,
              torch.cuda.current_stream(leaf.device).cuda_stream)
-    _raise_on(err, "decode_spec_pool")
+    build.raise_on(err, "decode_spec_pool")
     decode_spec_pool.launches += 1
     return out
 

@@ -6,7 +6,9 @@ engine, or through the continuous-batching scheduler, on the card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --variant 1 --scheduler --paged --attn-kernel on --slots 4
 
-``--variant 0`` runs the bf16 autoregressive baseline. ``--smoke`` takes
+``--variant 0`` runs the bf16 autoregressive baseline, ``--variant 2``
+Cassandra-2 (MX; with ``--paged`` only with ``--attn-kernel off``, as in
+the reference). ``--smoke`` takes
 the reduced config; ``--device cpu`` runs the plain versions on the CPU.
 Weights are random, drawn from ``--seed``. The prefix cache
 (``--prefix-cache``, ``--shared-header``) and preemption (``--swap``) come
@@ -49,8 +51,8 @@ def run(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--variant", type=int, default=1, choices=[0, 1],
-                    help="0=bf16 baseline, 1=Cassandra-1")
+    ap.add_argument("--variant", type=int, default=1, choices=[0, 1, 2],
+                    help="0=bf16 baseline, 1=Cassandra-1, 2=Cassandra-2 (MX)")
     ap.add_argument("--gamma", type=int, default=3)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--requests", type=int, default=2)

@@ -25,6 +25,14 @@ from repro_torch.serving import kvcache as KC
 Params = dict
 _FAMILY = ("the port covers the dense GQA family; {what} is ROADMAP "
            "Queue 1 step 9")
+# The reference fails on this combination too (paged_gqa_packed reads the
+# Cassandra-1 exponent leaves: KeyError 'exp_words'); neither package has a
+# Cassandra-2 packed attention kernel.
+C2_PACKED_ATTN = (
+    "Cassandra-2 (variant=2) with attn_kernel='on': the packed paged-"
+    "attention kernel (paged_gqa_packed) decodes Cassandra-1 leaves only, "
+    "and the reference fails here as well (KeyError: 'exp_words'); serve "
+    "Cassandra-2 with attn_kernel='off'")
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +194,8 @@ def _attn_entry_paged(rt: Runtime, bp: dict, x, positions, *, centry,
     cfg, cass = rt.cfg, rt.cass
     view = "draft" if rt.view == "draft" else "target"
     if ventry is None and KC.is_packed(centry["k"]) and view == "draft":
+        if cass.variant != 1:
+            raise ValueError(C2_PACKED_ATTN)
         kv_pools = ("packed", centry["k"]["spec"], centry["v"]["spec"],
                     book[0], cass.kv_keep(cfg.hd))
     else:

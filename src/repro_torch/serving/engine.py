@@ -63,8 +63,11 @@ def validate_serving_knobs(cfg: ModelConfig, *, gamma: int, num_slots: int,
                            max_prefill_tokens_per_step: int | None,
                            ttft_deadline_ms: float | None = None,
                            itl_target_ms: float | None = None,
-                           attn_kernel: str = "off") -> None:
+                           attn_kernel: str = "off",
+                           variant: int = 1) -> None:
     """Fail fast on inconsistent serving knobs, as one-line ValueErrors.
+
+    ``variant`` is the Cassandra format of the cache (0: plain bf16).
 
     The SLO kwargs cover callers that apply one default SLO to every
     request (``launch.serve``); per-request values go through
@@ -104,6 +107,8 @@ def validate_serving_knobs(cfg: ModelConfig, *, gamma: int, num_slots: int,
         raise ValueError(
             "attn_kernel walks the (B,MB) block table in-kernel — it "
             "requires the paged layout (paged=True)")
+    if attn_kernel != "off" and variant == 2:
+        raise ValueError(M.C2_PACKED_ATTN)
 
 
 def validate_request_slos(*, ttft_deadline_ms: float | None = None,

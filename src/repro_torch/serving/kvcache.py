@@ -73,10 +73,10 @@ def is_packed(store) -> bool:
 
 def encode_store(cass: CassandraConfig, x: torch.Tensor, d: int,
                  codebook) -> dict:
-    """Pack (..., d) bf16 vectors into a {"spec", "verif"} store."""
-    scores = x.to(torch.float32).abs()
+    """Pack (..., d) bf16 vectors into a {"spec", "verif"} store (the
+    magnitude selection runs through ``kernels.kv_topk``)."""
     spec, verif = fmt.format_tensor(
-        x, scores, cass, d, cass.kv_keep(d), fmt.kv_group(cass, d),
+        x, None, cass, d, cass.kv_keep(d), fmt.kv_group(cass, d),
         cass.kv_trunc, codebook=codebook, corr_bits=ONLINE_CORR_BITS,
         pruned_raw=True)
     return {"spec": spec, "verif": verif}

@@ -267,7 +267,7 @@ class Scheduler:
             speculative=speculative, paged=paged, block_size=block_size,
             num_blocks=num_blocks,
             max_prefill_tokens_per_step=max_prefill_tokens_per_step,
-            attn_kernel=attn_kernel)
+            attn_kernel=attn_kernel, variant=cass.variant if cass else 0)
         self.attn_kernel = attn_kernel
         self.overlap = overlap and self.fused
         if paged:

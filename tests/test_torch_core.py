@@ -111,8 +111,12 @@ def test_build_codebook_tie_order():
 
 @pytest.mark.parametrize("density", [0.05, 0.3, 0.9])
 def test_unary_decode_bitwise_on_any_stream(density):
-    """The prefix-sum scatter equals the reference's argsort(~bits) on
-    every stream: valid unary regions and arbitrary bit patterns."""
+    """The port's unary decode (``kernels.unary_decode``, which
+    ``decode_exponents`` calls) equals the reference's ``unary_decode_block``
+    on the encoder's regions and the reference's Pallas kernel (interpret
+    mode) on arbitrary bit patterns."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import unary_decode as UD
     rng = np.random.default_rng(int(density * 100))
     k = 80
     n_bits = jcod.region_words(k, 3) * 32
@@ -122,10 +126,14 @@ def test_unary_decode_bitwise_on_any_stream(density):
     pub, pok = coding.unary_encode_block(torch.from_numpy(ranks), n_bits)
     TP.assert_bitwise(pub, ub)
     TP.assert_bitwise(pok, ok)
-    for stream in (b, np.array(ub)):
-        TP.assert_bitwise(
-            coding.unary_decode_block(torch.from_numpy(stream), k),
-            jcod.unary_decode_block(jnp.asarray(stream), k))
+    words = np.array(jbit.pack_bits(jnp.asarray(ub)))
+    np.testing.assert_array_equal(
+        UD.unary_decode(_t(words), k).numpy(),
+        np.asarray(jcod.unary_decode_block(ub, k), np.int32))
+    words = np.array(jbit.pack_bits(jnp.asarray(b))).reshape(18, -1)
+    np.testing.assert_array_equal(
+        UD.unary_decode(_t(words), k).numpy(),
+        np.asarray(jops.unary_decode(jnp.asarray(words), k, interpret=True)))
 
 
 @pytest.mark.parametrize("corr_bits", [4, 8])

@@ -263,3 +263,163 @@ def test_paged_scheduler_on_card_counts_launches(card):
         assert all(c == 1 for c in s["trace_counts"].values())
         outs[name] = [r.output for r in reqs]
     assert outs["fused"] == outs["alt"] == outs["sync"]
+
+
+# ---------------------------------------------------------------------------
+# Codec kernels (mx_decode, kv_topk, unary_decode)
+# ---------------------------------------------------------------------------
+
+def _bits16(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,group", [(320, 32), (80, 16), (64, 32)])
+def test_mx_decode_matches_plain_on_card(card, k, group):
+    """Bit for bit on every 16-bit container, any sign byte and shared
+    exponent, and on containers the encoder made from bf16 values."""
+    from repro_torch.core import mx
+    from repro_torch.core.bitops import as_int16
+    from repro_torch.kernels import mx_decode as MXD
+    gen = torch.Generator().manual_seed(k)
+    rows = 4096
+    m16 = torch.randint(0, 1 << 16, (rows * k,), generator=gen,
+                        dtype=torch.int32)
+    m16[:1 << 16] = torch.arange(1 << 16, dtype=torch.int32)
+    sign = torch.randint(0, 256, (rows, k), generator=gen, dtype=torch.uint8)
+    se = torch.randint(0, 256, (rows, k // group), generator=gen,
+                       dtype=torch.uint8)
+    x = (torch.randn((rows, k), generator=gen) * torch.exp2(torch.randint(
+        -12, 13, (rows, k), generator=gen).float())).to(torch.bfloat16)
+    enc = mx.mx_encode(x, group)
+    for s, m, e in ((sign, as_int16(m16.reshape(rows, k)), se),
+                    (enc["sign"], enc["m16"], enc["shared_exp"])):
+        s, m, e = s.to(card), m.to(card), e.to(card)
+        before = MXD.mx_decode.launches
+        got = MXD.mx_decode(s, m, e, group)
+        want = MXD.mx_decode_plain(s, m, e, group)
+        torch.cuda.synchronize()
+        assert MXD.mx_decode.launches == before + 1
+        assert torch.equal(_bits16(got), _bits16(want))
+
+
+def _topk_rows(gen, rows, d):
+    v = torch.randn((rows, d), generator=gen).to(torch.bfloat16)
+    v[0] = 1.5                                             # all equal
+    v[1] = torch.randint(-2, 3, (d,), generator=gen).to(torch.bfloat16)
+    v[2, ::2], v[2, 1::2] = -0.0, 0.0                      # +-0 only
+    v[3, : d // 2] = -v[3, d // 2:]                        # |v| ties
+    v[4, torch.rand(d, generator=gen) < 0.7] = 0.0
+    v[5, [1, 7, d - 1]] = float("nan")
+    v[6, [0, 5]] = float("inf")
+    v[7, :] = -0.0
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,keep", [(128, 80), (64, 32), (32, 16),
+                                    (256, 160), (128, 128)])
+def test_kv_topk_matches_plain_on_card(card, d, keep):
+    """bitmap, kept and pruned bit for bit (NaN payloads included) on
+    random rows and forced ties, +-0, all-equal, NaN and inf rows."""
+    from repro_torch.kernels import kv_topk as KT
+    v = _topk_rows(torch.Generator().manual_seed(d + keep), 3000, d).to(card)
+    before = KT.kv_topk.launches
+    got = KT.kv_topk(v, keep)
+    want = KT.kv_topk_plain(v, keep)
+    torch.cuda.synchronize()
+    assert KT.kv_topk.launches == before + 1
+    assert torch.equal(got["bitmap"], want["bitmap"])
+    for name in ("kept", "pruned"):
+        assert torch.equal(_bits16(got[name]), _bits16(want[name])), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,density", [(320, None), (80, None), (192, None),
+                                       (400, None), (80, 0.05), (320, 0.5),
+                                       (400, 0.95)])
+def test_unary_decode_matches_plain_on_card(card, k, density):
+    """Encoder regions (unary mode; W = 38 crosses one 32-word chunk) and
+    arbitrary words of a given density of ones, plus empty and full
+    regions."""
+    from repro_torch.core import bitops, coding
+    from repro_torch.kernels import unary_decode as UD
+    gen = torch.Generator().manual_seed(k)
+    rows = 2000
+    n_bits = coding.region_words(k, 3) * 32
+    if density is None:
+        ranks = (torch.rand((rows, k), generator=gen) ** 4 * 8).to(
+            torch.uint8)
+        bits, ok = coding.unary_encode_block(ranks, n_bits)
+        bits = bits[ok]
+    else:
+        bits = torch.rand((rows, n_bits), generator=gen) < density
+    bits[0], bits[1] = False, True
+    words = bitops.pack_bits(bits).to(card)
+    before = UD.unary_decode.launches
+    got = UD.unary_decode(words, k)
+    want = UD.unary_decode_plain(words, k)
+    torch.cuda.synchronize()
+    assert UD.unary_decode.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_codec_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels import kv_topk as KT, mx_decode as MXD
+    from repro_torch.kernels import unary_decode as UD
+    sign = torch.zeros((4, 64), dtype=torch.uint8, device=card)
+    m16 = torch.zeros((4, 64), dtype=torch.int16, device=card)
+    se = torch.zeros((4, 2), dtype=torch.uint8, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        MXD.mx_decode(sign, m16.int(), se, 32)
+    with pytest.raises(ValueError, match="shape"):
+        MXD.mx_decode(sign, m16, se, 16)
+    with pytest.raises(ValueError, match="is on cpu"):
+        MXD.mx_decode(sign.cpu(), m16, se, 32)
+    v = torch.zeros((4, 96), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="d=96"):
+        KT.kv_topk(v, 48)
+    with pytest.raises(ValueError, match="not contiguous"):
+        KT.kv_topk(torch.zeros((4, 256), dtype=torch.bfloat16,
+                               device=card)[:, ::2], 32)
+    with pytest.raises(TypeError, match="dtype"):
+        UD.unary_decode(torch.zeros((4, 8), dtype=torch.int64, device=card),
+                        80)
+
+
+@pytest.mark.cuda
+def test_c2_engine_and_scheduler_on_card(card):
+    """Cassandra-2 at SMOKE width: spec tokens == AR steps at the verify
+    width, bit for bit; every draft and verify pass decodes through
+    mx_decode and every KV encode runs kv_topk; the paged scheduler
+    (attention kernel off) == the Engine, overlap on == off."""
+    from repro_torch.kernels import kv_topk as KT, mx_decode as MXD
+    from repro_torch.serving.scheduler import Scheduler
+    cfg = get_config("llama3-8b", smoke=True)
+    cass = CassandraConfig(variant=2, gamma=3)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = format_params(init_params(cfg, gen, device=card), cass)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (3, 16),
+                                      generator=gen, device=card)}
+    eng = Engine(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3))
+    MXD.mx_decode.launches = KT.kv_topk.launches = 0
+    spec, st = eng.generate(prompt, 12)
+    assert MXD.mx_decode.launches > 0 and KT.kv_topk.launches > 0
+    wide, _ = AR.ar_steps(eng, prompt["tokens"], 12, 4)
+    np.testing.assert_array_equal(spec[:, :12].cpu().numpy(),
+                                  wide.cpu().numpy())
+    outs = []
+    for kw in ({}, {"overlap": False}):
+        sched = Scheduler(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3),
+                          num_slots=3, s_max=36, paged=True, block_size=4,
+                          chunk_size=8, **kw)
+        reqs = [sched.submit(p, max_new=12)
+                for p in prompt["tokens"].cpu().numpy()]
+        sched.run()
+        outs.append(np.array([r.output for r in reqs]))
+    np.testing.assert_array_equal(outs[0], spec[:, :12].cpu().numpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    with pytest.raises(ValueError, match="exp_words"):
+        Scheduler(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3),
+                  num_slots=3, s_max=36, paged=True, attn_kernel="on")
