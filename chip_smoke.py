@@ -62,15 +62,40 @@ these phases; any failure exits non-zero:
               tokens, overlap on == off and fused == alternating bit for
               bit, ``attn_kernel="on"`` refused with the reference's
               limitation;
-11. report  — ``kernels: [...]``, one JSON line per the kernels table,
+11. mla kernels — DeepSeek-V3 at full width cut to its 3 dense layers
+              (no routed expert), random weights from ``--seed`` on a
+              generator of its own, Cassandra-1 (γ=3): ``paged_mla``
+              against its plain version on the model's own pools after a
+              128-token chunked prefill (NaN in every pool row no valid
+              position reads, an empty row, out-of-range table entries)
+              and on synthetic 4 × 4096-token pools, T ∈ {1, 4, 32}:
+              (acc / l, m, l) and the merged context within rtol 1e-4 /
+              atol 1e-5 (acc's own rounding grows with l, a sum of up to
+              4096 unnormalised terms); kernel, bound, plain and library
+              µs; ``kv_topk`` and
+              ``unary_decode`` on the prefill's c (d 512) and kr (d 64),
+              bit for bit;
+12. mla engine — ``Engine.generate`` on the MLA model (4 × 128-token
+              prompts × 32 new): spec tokens equal AR steps at the verify
+              width on every position; packed bytes, one verify pass, tok/s
+              and peak memory; launches as the passes imply;
+13. mla sched — the paged ``Scheduler`` on the MLA model with
+              ``attn_kernel="on"``: ``paged_mla`` launches = passes ×
+              layers, first-token logits within a tenth of the logit rms
+              of the Engine's, overlap on == off and fused == alternating
+              bit for bit, kernel on == off under the near-tie rule (share
+              printed), and the bf16 autoregressive baseline with the
+              kernel on and off;
+14. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 4c, 7-11 (4b and 4c read phase 6's
-prompts). Phases 6, 7, 9 and 10 set every kernel's launch count to 0
-before their run and check it after against what the passes imply (the
-C-1 runs also count ``kv_topk``, the KV encode, and ``unary_decode``, the
-exponent decode of the target view). Phases 1-6 draw their inputs from
-``--seed``, the later ones from generators of their own.
+Phases run in the order 1-6, 4b, 4c, 7-14 (4b and 4c read phase 6's
+prompts). Phases 6, 7, 9, 10, 12 and 13 set every kernel's launch count
+to 0 before their run and check it after against what the passes imply
+(the C-1 runs also count ``kv_topk``, the KV encode, and
+``unary_decode``, the exponent decode of the target view). Phases 1-6 draw
+their inputs from ``--seed``, the later ones from generators of their
+own.
 
 Every time is measured on the card in this run (CUDA events, or the host
 clock around work that ends in ``torch.cuda.synchronize()``).
@@ -1159,7 +1184,7 @@ def reset_launches() -> None:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import unary_decode as UD
     for fn in (DM.draft_matmul, PA.paged_gqa, PA.paged_gqa_packed,
-               MXD.mx_decode, KT.kv_topk, UD.unary_decode):
+               PA.paged_mla, MXD.mx_decode, KT.kv_topk, UD.unary_decode):
         fn.launches = 0
 
 
@@ -1356,6 +1381,477 @@ def c2_depth_phase(args, gen) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 11-13: DeepSeek-V3 MLA (its three dense layers) under Cassandra-1
+# ---------------------------------------------------------------------------
+
+def mla_setup(args) -> dict:
+    """DeepSeek-V3 at full width cut to its 3 dense layers (no routed
+    expert), random weights from ``--seed`` on a generator of its own,
+    packed in Cassandra-1; the prompts from the same generator."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params, params_nbytes
+    from repro_torch.launch.serve import format_line
+    from repro_torch.models.model import init_params
+
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=full.first_dense_layers)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    plain = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = format_params(plain, cass)
+    torch.cuda.synchronize()
+    nb = params_nbytes(packed)
+    n_par = sum(t.numel() for t in _leaves(plain))
+    say(f"[mla] {cfg.name} cut to its {cfg.n_layers} dense layers (d "
+        f"{cfg.d_model}, {cfg.n_heads} heads, q_lora {cfg.q_lora_rank}, "
+        f"kv_lora {cfg.kv_lora_rank}, rope {cfg.qk_rope_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}): {n_par / 1e9:.3f}e9 "
+        f"parameters; init {t_init:.1f} s, format_params "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(format_line(nb).replace("[format]", "[mla]"))
+    prompt = torch.randint(0, cfg.vocab_size, (args.requests,
+                                               args.prompt_len),
+                           generator=gen, device="cuda").to(torch.int32)
+    return {"cfg": cfg, "cass": cass, "plain": plain, "packed": packed,
+            "prompt": prompt, "gen": gen}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _mla_bound_ms(lengths, h, t, lat, rope) -> tuple:
+    """(bound ms, bound_by, bytes, ops, bf16 tensor-core ms): each row's
+    ``length`` latent rows (c and kr, bf16) read once, q_eff and q_rope
+    (f32) read, (acc, m, l) written; 2(L+R) + 2L flops per head, query
+    and token, at the f32 peak of the CUDA cores the kernel runs them on
+    (the bf16 tensor-core time of the same count beside it)."""
+    tokens = sum(int(x) for x in lengths)
+    b = len(lengths)
+    nbytes = (tokens * (lat + rope) * 2 + b * t * h * (lat + rope) * 4
+              + b * h * t * (lat + 2) * 4)
+    ops = tokens * h * t * (2 * (lat + rope) + 2 * lat)
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations",
+            nbytes, ops, ops / BF16_OPS_PER_S * 1e3)
+
+
+def _mla_library_ms(q_eff, q_rope, c_pool, kr_pool, table, lengths, scale,
+                    reps: int) -> float:
+    """One ``scaled_dot_product_attention`` over the rows' gathered latents:
+    queries [q_eff | q_rope], keys [c | kr] and values c broadcast over the
+    heads, the kernel's scale, a length mask. A yardstick only (it also
+    normalises)."""
+    import torch
+    from repro_torch.serving import kvcache as KC
+    b, t, h, lat = q_eff.shape
+    c = KC.gather_block_leaf(c_pool, table).float()
+    kr = KC.gather_block_leaf(kr_pool, table).float()
+    q = torch.cat([q_eff, q_rope], -1).permute(0, 2, 1, 3).contiguous()
+    k = torch.cat([c, kr], -1)[:, None].expand(b, h, -1, -1)
+    v = c[:, None].expand(b, h, -1, -1)
+    mask = (torch.arange(c.shape[1], device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    f = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(lambda: f(q, k, v, attn_mask=mask, scale=scale), reps)
+
+
+def _mla_layer0_latents(m, prompt):
+    """A prefill's layer-0 latents c (B,S,512) and kr (B,S,64), bf16: the
+    vectors the KV encoder packs."""
+    import torch
+    from repro_torch.models import attention as A, layers as L, model as M
+    from repro_torch.models.layers import Runtime
+    rt = Runtime(cfg=m["cfg"], cass=m["cass"], view="target")
+    p0 = M._index(m["packed"]["dec"][0]["e0"], 0)
+    with torch.inference_mode():
+        x = L.norm(rt, p0["norm1"], L.embed(m["packed"]["embed"], prompt))
+        return A.mla_latent(rt, p0["attn"], x, torch.arange(
+            prompt.shape[1], device=prompt.device))
+
+
+def mla_kernel_phase(m, n_new: int) -> dict:
+    """Phase 11: ``paged_mla`` against its plain version on the model's own
+    pools after a chunked prefill (T = 1, 4, 32; NaN in every pool row no
+    valid position reads) and on synthetic 4 x 4096-token pools; kv_topk
+    and unary_decode on the prefill's c and kr, bit for bit."""
+    import torch
+    from repro_torch.kernels import kv_topk as KT
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import unary_decode as UD
+    from repro_torch.models.attention import _mla_scale, _suffix_valid
+    from repro_torch.serving import kvcache as KC
+
+    cfg, cass, gen = m["cfg"], m["cass"], m["gen"]
+    h, lat, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    scale = _mla_scale(cfg)
+    t0 = time.perf_counter()
+    cache, _ = paged_prefill(m["packed"], cfg, cass, m["prompt"], n_new)
+    torch.cuda.synchronize()
+    say(f"[mla-kernels] chunked prefill of {tuple(m['prompt'].shape)} into "
+        f"a packed paged cache (paged_mla on): "
+        f"{time.perf_counter() - t0:.1f} s")
+    book = (cache["book_exp_of_rank"], cache["book_rank_of_exp"])
+    e0 = cache["dec"][0]["e0"]
+    pools = tuple(KC.read_store(cass, {z: {k: v[0] for k, v in e0[nm][
+        z].items()} for z in ("spec", "verif")}, d, "target", book)
+        .contiguous() for nm, d in (("c", lat), ("kr", rope)))
+    nb = pools[0].shape[0]
+    table = cache["block_table"].clone()
+    table[2, 1] = nb + 3                 # read as the trash block
+    table[:, -1] = -1                    # past every row's length
+    s = m["prompt"].shape[1]
+    lengths = torch.tensor([s, s, s - 51, 0], dtype=torch.int32,
+                           device="cuda")
+    # NaN in every pool row no valid position of this walk reads
+    live = torch.zeros(pools[0].shape[:2], dtype=torch.bool, device="cuda")
+    for row in range(len(lengths)):
+        for j in range(table.shape[1]):
+            k = min(BLOCK, int(lengths[row]) - j * BLOCK)
+            blk = int(table[row, j])
+            if k > 0:
+                live[blk if 0 <= blk < nb else 0, :k] = True
+    nan_pools = tuple(torch.where(live[..., None], p, float("nan"))
+                      for p in pools)
+    del cache
+    rows, ctx = 4, 4096
+    mbs = ctx // BLOCK
+    nbs = rows * mbs + 1
+    synth = tuple((torch.randn((nbs, BLOCK, d), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+                  for d in (lat, rope))
+    stable = torch.full((rows, mbs + 1), nbs + 1, dtype=torch.int32,
+                        device="cuda")
+    stable[:, :mbs] = (1 + torch.arange(rows * mbs, device="cuda")).reshape(
+        rows, mbs)
+    cases = ({"name": f"model 4x{s}", "pools": nan_pools, "clean": pools,
+              "table": table, "lengths": lengths},
+             {"name": f"synthetic {rows}x{ctx}", "pools": synth,
+              "clean": synth, "table": stable,
+              "lengths": torch.full((rows,), ctx, dtype=torch.int32,
+                                    device="cuda")})
+    out = {"max_abs_err": 0.0, "rows": []}
+    for case in cases:
+        tbl, lens = case["table"], case["lengths"]
+        b = len(lens)
+        for t in (1, 4, 32):
+            q_eff = torch.randn((b, t, h, lat), generator=gen, device="cuda")
+            q_rope = torch.randn((b, t, h, rope), generator=gen,
+                                 device="cuda")
+            run = (lambda: PA.paged_mla(q_eff, q_rope, *case["pools"], tbl,
+                                        lens, scale=scale))
+            plain = (lambda: PA.paged_mla_plain(q_eff, q_rope,
+                                                *case["pools"], tbl, lens,
+                                                scale=scale))
+            got, want = run(), plain()
+            suf_c, suf_kr = (torch.randn((b, t, d), generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                             for d in (lat, rope))
+            suf_valid = _suffix_valid(b, t, 0, 0, q_eff.device)
+            merged = PA.merge_mla_suffix(*got, q_eff, q_rope, suf_c, suf_kr,
+                                         suf_valid, scale=scale)
+            merged_p = PA.merge_mla_suffix(*want, q_eff, q_rope, suf_c,
+                                           suf_kr, suf_valid, scale=scale)
+            torch.cuda.synchronize()
+            # acc is a sum of up to `length` unnormalised terms p·c over
+            # 512 latent dims, so its rounding error grows with l (up to
+            # 4e-5 at T=1 on the model's pools): it is held divided by
+            # the plain version's l, the context the layer uses
+            lz = want[2][..., None].clamp_min(1e-30)
+            err = max((a - b_).abs().nan_to_num(float("inf")).max().item()
+                      for a, b_ in zip(got, want))
+            for a, b_ in ((got[0] / lz, want[0] / lz), (got[1], want[1]),
+                          (got[2], want[2]), (merged, merged_p)):
+                if not torch.isfinite(a).all() or not torch.allclose(
+                        a, b_, rtol=PAGED_RTOL, atol=PAGED_ATOL):
+                    fail(f"mla-kernels: paged_mla {case['name']} T={t} "
+                         f"differs from its plain version (max abs err "
+                         f"{(a - b_).abs().nan_to_num(float('inf')).max()}"
+                         f"; raw (acc, m, l) {err:.3g})")
+            if not (got[0][lens == 0] == 0).all():
+                fail("mla-kernels: an empty row's state is not initial")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            k_ms = cuda_ms(run, 20)
+            p_ms = cuda_ms(plain, 1)
+            lib_ms = _mla_library_ms(q_eff, q_rope, *case["clean"], tbl,
+                                     lens, scale, 10)
+            b_ms, by, nbytes, ops, tc_ms = _mla_bound_ms(lens.tolist(), h, t,
+                                                         lat, rope)
+            out["rows"].append({"kernel": "paged_mla", "case": case["name"],
+                                "T": t, "ms": k_ms, "plain_ms": p_ms,
+                                "bound_ms": b_ms, "bound_by": by,
+                                "library_ms": lib_ms, "err": err,
+                                "bytes": nbytes, "ops": ops})
+            say(f"[mla-kernels] paged_mla {case['name']:16s} T={t:2d}: kernel "
+                f"{k_ms * 1e3:.1f} us  bound {b_ms * 1e3:.2f} us ({by}: "
+                f"{nbytes / 1e6:.2f} MB / {ops / 1e9:.3f} GFLOP at the f32 "
+                f"CUDA-core peak; bf16 tensor cores {tc_ms * 1e3:.2f} us)  "
+                f"plain {p_ms * 1e3:.1f} us  library {lib_ms * 1e3:.1f} us; "
+                f"max abs err {err:.3g}")
+    del cases, synth, pools, nan_pools
+    torch.cuda.empty_cache()
+    # the KV encode's selection and the exponent decode on the prefill's
+    # own latents (layer 0): c at d = 512, kr at d = 64
+    c, kr = _mla_layer0_latents(m, m["prompt"])
+    dbook = KC.default_kv_codebook("cuda")
+    codec = []
+    for nm, x, d in (("c", c, lat), ("kr", kr, rope)):
+        x = x.reshape(-1, d).contiguous()
+        r, kk = x.shape[0], cass.kv_keep(d)
+        mag = x.float().abs()
+        codec.append(codec_row(
+            "kv_topk", f"prefill {nm} (layer 0) {r}x{d}->{kk}",
+            lambda x=x, kk=kk: KT.kv_topk(x, kk),
+            lambda x=x, kk=kk: KT.kv_topk_plain(x, kk),
+            r * (2 * d + d // 8 + 2 * d), r * d * int(math.log2(d)),
+            library=lambda mag=mag, kk=kk: torch.topk(mag, kk, dim=-1)))
+        words = KC.encode_store(cass, x, d, dbook)["spec"]["exp_words"]
+        words = words.reshape(-1, words.shape[-1]).contiguous()
+        w = words.shape[1]
+        codec.append(codec_row(
+            "unary_decode", f"prefill {nm} exponent regions {r}x{w}->{kk}",
+            lambda words=words, kk=kk: UD.unary_decode(words, kk),
+            lambda words=words, kk=kk: UD.unary_decode_plain(words, kk),
+            4 * r * (w + kk), 32 * r * w))
+    out["codec"] = codec
+    return out
+
+
+def _kv_b_pieces(packed) -> int:
+    """``ROW_CHUNK`` pieces of one layer's kv_b (its draft view is decoded
+    with ``resolve_weight`` on every draft pass, one exponent decode each)."""
+    from repro_torch.core.format import ROW_CHUNK
+    from repro_torch.kernels.draft_matmul import packed_shape
+    w = packed["dec"][0]["e0"]["attn"]["kv_b"]["w"]
+    return -(-packed_shape(w)[1] // ROW_CHUNK)
+
+
+def mla_engine_phase(m, args) -> dict:
+    """Phase 12: ``Engine.generate`` on the MLA model: spec tokens equal AR
+    steps at the verify width on every position; launch counts as the
+    passes imply."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import model as M
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import Engine, EngineConfig, top2_margin
+
+    cfg, cass, packed, prompt = m["cfg"], m["cass"], m["packed"], m["prompt"]
+    b, s, n, gamma = args.requests, args.prompt_len, args.max_new, cass.gamma
+    layers = cfg.n_layers
+    eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=gamma),
+                 device="cuda")
+    rt_t = dataclasses.replace(eng.rt, view="target")
+    cache = KC.init_cache(cfg, cass, b, s + n + gamma + 1, packed=True,
+                          device="cuda")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg, cache = M.forward_prefill(rt_t, packed, {"tokens": prompt}, cache)
+        lg = lg[:, -1]
+        wide, logits = ar_steps(rt_t, packed, cache, lg, n, gamma + 1)
+        w1, l1 = ar_steps(rt_t, packed, cache, lg, gamma + 2, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        l_v, _ = M.forward_decode(rt_t, packed, wide[:, :gamma + 1], cache)
+        torch.cuda.synchronize()
+        verify_ms = (time.perf_counter() - t1) * 1e3
+        l_v1, _ = M.forward_decode(rt_t, packed, w1[:, :gamma + 1], cache)
+    if not torch.isfinite(logits).all() or not torch.isfinite(l_v).all():
+        fail("mla-engine: target logits are not finite")
+    gap = (logits[:, 1:gamma + 2] - l_v).abs().max().item()
+    gap1 = (l1[:, 1:] - l_v1).abs().max().item()
+    lrms = l_v.square().mean().sqrt().item()
+    say(f"[mla-engine] reference runs (AR steps at the verify width, {n} "
+        f"tokens; at width 1, {gamma + 2}) {time.perf_counter() - t0:.1f} s; "
+        f"AR at width {gamma + 1} vs the verify pass: max abs diff {gap:.3g}; "
+        f"at width 1: {gap1:.3g} (logit rms {lrms:.3g}); one verify pass "
+        f"(target view, width {gamma + 1}, {layers} layers) {verify_ms:.1f} ms")
+    ref = (wide.cpu().numpy(), top2_margin(logits).cpu().numpy())
+    lg_cpu = lg.to(torch.float32).cpu()
+    del cache, lg, logits, l_v, l1, l_v1
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp, st = eng.generate({"tokens": prompt}, max_new=n, speculative=True)
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t0
+    launches = {"draft_matmul": DM.draft_matmul.launches,
+                "paged_mla": PA.paged_mla.launches, **codec_launches()}
+    peak = torch.cuda.max_memory_allocated()
+    sp = sp.cpu().numpy()
+    if sp.shape != (b, n + gamma + 1) or not (
+            (sp[:, :n] >= 0) & (sp[:, :n] < cfg.vocab_size)).all():
+        fail(f"mla-engine: spec tokens malformed: {sp}")
+    equal = int((sp[:, :n] == ref[0]).sum())
+    say(f"[mla-engine] lossless: spec == AR at the verify width {gamma + 1} "
+        f"on {equal} of {b * n} positions")
+    if equal != b * n:
+        fail(f"mla-engine: spec tokens differ from AR at the verify width on "
+             f"{b * n - equal} positions")
+    cyc, units = st["cycles"], decode_units(packed)
+    drafts = st["draft_passes"]
+    expect = {"draft_matmul": drafts * (7 * layers + 1), "paged_mla": 0,
+              "mx_decode": 0, "kv_topk": 2 * (1 + cyc),
+              # every weight (kept and pruned regions) per target pass, the
+              # KV target view per layer per verify pass, the draft view
+              # once per cycle, kv_b's draft view per layer per draft pass
+              "unary_decode": 2 * units * (1 + cyc) + 2 * layers * cyc
+              + 2 * cyc + drafts * layers * _kv_b_pieces(packed)}
+    check_launches("mla-engine", launches, expect)
+    say(f"[mla-engine] spec: cycles {cyc}, acceptance "
+        f"{st['acceptance']:.3f}, tokens/cycle {st['tokens_per_cycle']:.3f}, "
+        f"{b * n / sp_s:.2f} tok/s ({sp_s:.1f} s); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    return {"lg": lg_cpu, "wide": ref, "gap1": gap1, "launches": launches}
+
+
+def mla_sched_phase(m, args, eng: dict) -> dict:
+    """Phase 13: the paged ``Scheduler`` on the MLA model with
+    ``attn_kernel="on"``: launches as the passes imply, first-token logits
+    against the Engine's prefill, overlap on == off and fused ==
+    alternating bit for bit, kernel on == off under the near-tie rule, and
+    the bf16 autoregressive baseline with the kernel on and off."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.kernels import paged_attention as PA
+
+    cfg, cass, packed, prompt = m["cfg"], m["cass"], m["packed"], m["prompt"]
+    n, layers, gamma = args.max_new, cfg.n_layers, cass.gamma
+    b = prompt.shape[0]
+    ref_tok, margins = eng["wide"]
+    lg = eng["lg"].numpy()
+    lrms = float(np.sqrt((lg.astype(np.float64) ** 2).mean()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sched, tokens, first, wall = serve_paged(cfg, packed, cass, prompt, n,
+                                             attn_kernel="on")
+    launches = {"draft_matmul": DM.draft_matmul.launches,
+                "paged_mla": PA.paged_mla.launches,
+                "paged_gqa": PA.paged_gqa.launches,
+                "paged_gqa_packed": PA.paged_gqa_packed.launches,
+                **codec_launches()}
+    peak = torch.cuda.max_memory_allocated()
+    st = sched.summary()
+    del sched
+    unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
+    drafts, targets = gamma * unified, st["cycles"]
+    units = decode_units(packed)
+    expect = {"draft_matmul": drafts * (7 * layers + 1),
+              "paged_mla": (targets + drafts) * layers,
+              "paged_gqa": 0, "paged_gqa_packed": 0, "mx_decode": 0,
+              "kv_topk": 2 * targets,
+              # per target pass every weight and the KV target view per
+              # layer; per draft pass the KV draft view and kv_b per layer
+              "unary_decode": targets * (2 * units + 2 * layers)
+              + drafts * layers * (2 + _kv_b_pieces(packed))}
+    say(f"[mla-sched] launches {launches}; expected {expect}: "
+        f"{launches == expect} (paged_mla: (target passes {targets} + draft "
+        f"passes {drafts}) x {layers} layers)")
+    if launches != expect:
+        fail(f"mla-sched: launches {launches} != expected {expect}")
+    gmax, grms = _logit_gap(first, lg)
+    say(f"[mla-sched] first-token logits vs the Engine's prefill: max abs "
+        f"diff {gmax:.4g}, rms {grms:.4g} (logit rms {lrms:.4g}; limit "
+        f"{0.1 * lrms:.4g})")
+    if not gmax < 0.1 * lrms:
+        fail(f"mla-sched: first-token logits differ from the Engine's by "
+             f"{gmax}")
+    compared, cut = tau_check(tokens, ref_tok, margins, 2.0 * gmax, n,
+                              what="mla-sched")
+    walls = st["bucket_wall_ms"]
+    uni, chunk = walls.get("unified", {}), walls.get("chunk", {})
+    say(f"[mla-sched] {b} requests x {n} tokens: cycles {st['cycles']} "
+        f"(unified {unified}), acceptance {st['acceptance']:.3f}, "
+        f"{b * n / wall:.2f} tok/s ({wall:.1f} s); unified step "
+        f"{uni.get('mean_ms', 0.0):.1f} ms (x{uni.get('calls', 0)}), wide "
+        f"prefill {chunk.get('mean_ms', 0.0):.1f} ms "
+        f"(x{chunk.get('calls', 0)}); TTFT p50 {st['ttft_cycles_p50']:.1f} "
+        f"cycles; max_memory_allocated {peak / 2**30:.2f} GiB; tokens == "
+        f"Engine (== AR at the verify width) on {compared} of {b * n} "
+        f"positions under tau = 2 x the first-token gap = {2 * gmax:.3g}, "
+        f"cut {cut}")
+    runs = {"on": (tokens, first)}
+    for name, params, c, spec, kw in (
+            ("on, overlap off", packed, cass, True,
+             {"attn_kernel": "on", "overlap": False}),
+            ("on, alternating", packed, cass, True,
+             {"attn_kernel": "on", "fused": False}),
+            ("off", packed, cass, True, {}),
+            ("bf16 AR, on", m["plain"], None, False, {"attn_kernel": "on"}),
+            ("bf16 AR, off", m["plain"], None, False, {})):
+        reset_launches()
+        sched, tok, fst, w = serve_paged(cfg, params, c, prompt, n,
+                                         speculative=spec, **kw)
+        s2 = sched.summary()
+        del sched
+        passes = s2["cycles"] + (gamma * (s2["cycles"] - s2["prefill_cycles"]
+                                          + s2["mixed_cycles"])
+                                 if spec else 0)
+        want = passes * layers if kw.get("attn_kernel") == "on" else 0
+        got = PA.paged_mla.launches
+        runs[name] = (tok, fst)
+        say(f"[mla-sched] {name}: {b} x {n} tokens in {w:.1f} s; paged_mla "
+            f"launches {got} (expected {want})")
+        if got != want:
+            fail(f"mla-sched: {name} launched paged_mla {got} times, "
+                 f"expected {want}")
+    for other in ("on, overlap off", "on, alternating"):
+        same = np.array_equal(runs[other][0], tokens)
+        say(f"[mla-sched] {other} == on, bit for bit: {same}")
+        if not same:
+            fail(f"mla-sched: tokens with {other} differ from the pipelined "
+                 f"fused run")
+    gaps = {k: _logit_gap(v[1], lg)[0] for k, v in runs.items()}
+    onoff = _logit_gap(runs["on"][1], runs["off"][1])[0]
+    tau = 2.0 * max(gaps["on"], gaps["off"], onoff)
+    say(f"[mla-sched] first-token logits vs the Engine's prefill: max abs "
+        f"diff {gaps}; on vs off {onoff:.4g}; tau = {tau:.4g}")
+    for name in ("on", "off"):
+        compared, cut = tau_check(runs[name][0], ref_tok, margins, tau, n,
+                                  what=f"mla-sched {name}")
+        say(f"[mla-sched] kernel {name} == AR at the verify width on "
+            f"{compared} of {b * n} positions ({compared / (b * n):.1%}), "
+            f"cut {cut}")
+    same = int((runs["on"][0] == runs["off"][0]).sum())
+    say(f"[mla-sched] kernel on == off at {same} of {b * n} positions")
+    tau0 = 2.0 * max(gaps["bf16 AR, on"], gaps["bf16 AR, off"], eng["gap1"],
+                     tau / 2)
+    for name in ("bf16 AR, on", "bf16 AR, off"):
+        compared, cut = tau_check(runs[name][0], ref_tok, margins, tau0, n,
+                                  what=f"mla-sched {name}")
+        say(f"[mla-sched] {name} == C-1 AR at the verify width on {compared}"
+            f" of {b * n} positions ({compared / (b * n):.1%}) under tau = "
+            f"{tau0:.4g}, cut {cut}")
+    same = int((runs["bf16 AR, on"][0] == runs["bf16 AR, off"][0]).sum())
+    say(f"[mla-sched] bf16 AR kernel on == off at {same} of {b * n} "
+        f"positions")
+    return {"launches": launches["paged_mla"]}
+
+
+# ---------------------------------------------------------------------------
 
 def run(args) -> None:
     import torch
@@ -1448,10 +1944,20 @@ def run(args) -> None:
     torch.cuda.empty_cache()
     # 10. Cassandra-2 through the paged scheduler at 2 layers
     c2_depth_phase(args, gen2)
+    torch.cuda.empty_cache()
+    # 11-13. DeepSeek-V3 MLA, its 3 dense layers at full width, C-1
+    mla = mla_setup(args)
+    mla_k = mla_kernel_phase(mla, args.max_new)
+    codec += mla_k["codec"]
+    mla_e = mla_engine_phase(mla, args)
+    mla_s = mla_sched_phase(mla, args, mla_e)
+    del mla
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 11. report
+    # 14. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
-        '"mx_decode", "kv_topk", "unary_decode"]')
+        '"paged_mla", "mx_decode", "kv_topk", "unary_decode"]')
     line = {"kernels": [{
         "name": "draft_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/draft_matmul.cu",
@@ -1477,6 +1983,19 @@ def run(args) -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # paged_mla at its main-path shape: the MLA model's pools after the
+    # prefill at T=1 (the draft passes: 3 of the 4 launches per cycle)
+    row = next(r for r in mla_k["rows"] if r["case"].startswith("model")
+               and r["T"] == 1)
+    line["kernels"].append({
+        "name": "paged_mla", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_mla.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:530",
+        "launches": mla_s["launches"],
+        "max_abs_err": mla_k["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]})
     # the codec kernels at their main-path shape: the w_gate target lanes
     # (mx_decode), a prefill's K (kv_topk), w_gate's kept exponent regions
     # (unary_decode); launches from the C-2 run (mx_decode, kv_topk) and

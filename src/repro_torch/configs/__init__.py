@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-The port knows the paper's primary model; the other families join with
-their ROADMAP Queue 1 step 9 slices. ``smoke=True`` returns the reduced
+The port knows the paper's primary model and deepseek-v3-671b (MLA; its
+routed-expert layers raise until MoE is ported); the other families join
+with their ROADMAP Queue 1 slices. ``smoke=True`` returns the reduced
 same-family config the CPU tests use.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

@@ -24,6 +24,8 @@
 // (broadcast reads, D compares per value). A __ballot_sync per word is the
 // bitmap word, and a __popc prefix over the ballots gives each value its
 // kept or pruned slot, so the compaction needs no second pass.
+// D runs from 32 (one value per lane) to 512 (16 per lane: MLA's latent c,
+// 8 KB of staged magnitudes per CTA).
 // What this first version leaves out: the O(D^2) compare count (a bitonic
 // sort network would take O(D log^2 D)) and fusing the sign|mantissa and
 // exponent packing of the kept values into the same pass.
@@ -113,6 +115,7 @@ extern "C" int kv_topk_launch(const void* v, void* bitmap, void* kept,
     case 64: kv_topk_kernel<2><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
     case 128: kv_topk_kernel<4><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
     case 256: kv_topk_kernel<8><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
+    case 512: kv_topk_kernel<16><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -30,8 +30,8 @@ import torch
 from repro_torch.core import bitops
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128, 256)      # one lane holds d/32 of a vector
-_ROW_CHUNK = 4096                   # rows per pairwise compare (d² each)
+HEAD_DIMS = (32, 64, 128, 256, 512)  # one lane holds d/32 of a vector
+_PAIRS_PER_CHUNK = 1 << 26           # pairwise compares per row chunk
 
 
 def _select(v: torch.Tensor, keep: int) -> tuple:
@@ -61,9 +61,9 @@ def kv_topk_plain(v: torch.Tensor, keep: int) -> dict:
     (..., keep) and ``pruned`` (..., d-keep) in position order."""
     lead, d = v.shape[:-1], v.shape[-1]
     v2 = v.reshape(-1, d)
-    parts = [_select(v2[lo:lo + _ROW_CHUNK], keep)
-             for lo in range(0, v2.shape[0], _ROW_CHUNK)] or [
-        _select(v2, keep)]
+    chunk = max(1, _PAIRS_PER_CHUNK // (d * d))     # 4096 rows at d = 128
+    parts = [_select(v2[lo:lo + chunk], keep)
+             for lo in range(0, v2.shape[0], chunk)] or [_select(v2, keep)]
     mask, kept, pruned = (torch.cat(p) for p in zip(*parts))
     return {"bitmap": bitops.pack_bits(mask).reshape(*lead, d // 32),
             "kept": kept.reshape(*lead, keep),

@@ -1,11 +1,12 @@
-"""Paged GQA decode attention over a block pool: plain versions and the
+"""Paged decode attention over a block pool: plain versions and the
 wrappers around the hand-written CUDA kernels.
 
-The kernels (``csrc/paged_gqa.cu``) replace the TPU kernels ``paged_gqa``
-and ``paged_gqa_packed`` (``src/repro/kernels/paged_attention.py``). Both
-walk each row's ``(B, MB)`` block table and fold every pool block into an
-online-softmax (flash) state under the row's ``length`` mask, so the
-per-request prefix is never gathered:
+The kernels (``csrc/paged_gqa.cu``, ``csrc/paged_mla.cu``) replace the TPU
+kernels ``paged_gqa``, ``paged_gqa_packed`` and ``paged_mla``
+(``src/repro/kernels/paged_attention.py``). Each walks each row's
+``(B, MB)`` block table and folds every pool block into an online-softmax
+(flash) state under the row's ``length`` mask, so the per-request prefix
+is never gathered:
 
 * ``paged_gqa`` — plain bf16 pool blocks ``(NB, BS, Hkv, D)``: the verify
   pass, prefill chunks and autoregressive steps;
@@ -13,11 +14,16 @@ per-request prefix is never gathered:
   leaves (bitmap / sign|mantissa codes / exponent words / mode / emax,
   ``(NB, BS, Hkv, 1, W)``); each block is decoded on chip before its
   flash step, so the draft pass's KV never exists densely in device
-  memory (the paper's DRAM→L2 decoder module).
+  memory (the paper's DRAM→L2 decoder module);
+* ``paged_mla`` — MLA in latent space (absorbed math) over bf16 pools of
+  the latent ``c`` ``(NB, BS, L)`` and the rope key ``kr`` ``(NB, BS, R)``:
+  ``c`` is both the key and the value operand. A packed MLA cache is
+  decoded to its view before the walk (``models/model.py``).
 
-Both return the unnormalised flash state ``(acc (B,Hkv,G,T,D) f32,
-m (B,Hkv,G,T) f32, l (B,Hkv,G,T) f32)``; ``merge_gqa_suffix`` folds in the
-scratch/new-token suffix (which lives outside the pool) and normalises.
+Each returns the unnormalised flash state — ``(acc (B,Hkv,G,T,D) f32,
+m (B,Hkv,G,T) f32, l (B,Hkv,G,T) f32)`` for GQA, ``(acc (B,H,T,L), m, l
+(B,H,T))`` for MLA; ``merge_gqa_suffix`` / ``merge_mla_suffix`` fold in
+the scratch/new-token suffix (which lives outside the pool) and normalise.
 
 Each wrapper follows its tensors' device: CPU tensors take the plain
 version (the reference's ``impl="jnp"`` math), CUDA tensors launch the
@@ -39,6 +45,8 @@ NEG_INF = -1e30
 TRASH_BLOCK = 0
 MAX_BLOCK_SIZE = 32             # the kernels stage one block of ≤ 32 tokens
 HEAD_DIMS = (32, 64, 128)       # one lane holds D/32 of a query's dims
+MLA_LATENT_DIMS = (32, 64, 128, 256, 512)   # one lane holds L/32 dims
+MLA_MAX_ROPE = 128              # one lane holds up to 4 rope dims
 
 
 def sanitize_table(table: torch.Tensor, num_blocks: int) -> torch.Tensor:
@@ -158,6 +166,51 @@ def paged_gqa_plain(q, k_pool, v_pool, table, length, *, scale: float):
     return acc, m, l
 
 
+def _mla_block(q_eff, q_rope, cb, krb, valid, m, l, acc, *, scale: float):
+    """One latent flash step over a (B, S, L)+(B, S, R) block, rows
+    batched.
+
+    q_eff (B,T,H,L) f32 · q_rope (B,T,H,R) f32 · cb/krb (B,S,·) · valid
+    (B,S) bool · m/l (B,H,T) f32 · acc (B,H,T,L) f32. ``cb`` is both the
+    score and the value operand, so one zeroed copy keeps a masked lane's
+    NaN out of both."""
+    vz = valid[:, :, None]
+    cz = torch.where(vz, cb, 0).to(torch.float32)
+    krz = torch.where(vz, krb, 0).to(torch.float32)
+    s = (torch.einsum("bthl,bsl->bhts", q_eff, cz)
+         + torch.einsum("bthr,bsr->bhts", q_rope, krz)) * scale
+    vm = valid[:, None, None, :]
+    s = torch.where(vm, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.where(vm, torch.exp(s - m_new[..., None]), 0.0)
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] + torch.einsum("bhts,bsl->bhtl", p, cz)
+    return m_new, l_new, acc_new
+
+
+def paged_mla_plain(q_eff, q_rope, c_pool, kr_pool, table, length, *,
+                    scale: float):
+    """The latent table walk over plain pools, one flash step per table
+    column (the reference's ``impl="jnp"`` branch)."""
+    b, t, h, latent = q_eff.shape
+    nb, bs = c_pool.shape[:2]
+    table = sanitize_table(table, nb).to(torch.int64)
+    length = length.to(torch.int32).reshape(-1).expand(b)
+    qe, qr = q_eff.to(torch.float32), q_rope.to(torch.float32)
+    dev = q_eff.device
+    m = torch.full((b, h, t), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, t, latent), dtype=torch.float32, device=dev)
+    ar = torch.arange(bs, device=dev)
+    for j in range(table.shape[1]):
+        blk = table[:, j]
+        valid = j * bs + ar[None, :] < length[:, None]
+        m, l, acc = _mla_block(qe, qr, c_pool[blk], kr_pool[blk], valid, m,
+                               l, acc, scale=scale)
+    return acc, m, l
+
+
 def paged_gqa_packed_plain(q, k_spec, v_spec, table, length, book, *,
                            d: int, keep: int, trunc: int, exp_bits: int,
                            scale: float):
@@ -190,6 +243,29 @@ def merge_gqa_suffix(acc, m, l, q, suf_k, suf_v, suf_valid, *,
         "bhgts,bshd->bhgtd", p, vz.to(torch.float32))
     out = acc_new / l_new[..., None].clamp_min(1e-30)
     return out.permute(0, 3, 1, 2, 4)
+
+
+def merge_mla_suffix(acc, m, l, q_eff, q_rope, suf_c, suf_kr, suf_valid, *,
+                     scale: float) -> torch.Tensor:
+    """Fold a (B, S, L)+(B, S, R) latent suffix into paged flash state and
+    normalise. ``suf_valid`` is (B, T, S) bool. Returns the latent context
+    (B, T, H, L) f32 (the caller applies w_uv). Suffix rows valid for no
+    query are zeroed."""
+    anyv = suf_valid.any(1)[:, :, None]
+    czf = torch.where(anyv, suf_c, 0).to(torch.float32)
+    krf = torch.where(anyv, suf_kr, 0).to(torch.float32)
+    s = (torch.einsum("bthl,bsl->bhts", q_eff.to(torch.float32), czf)
+         + torch.einsum("bthr,bsr->bhts", q_rope.to(torch.float32), krf)
+         ) * scale
+    vm = suf_valid[:, None]                                # (B,1,T,S)
+    s = torch.where(vm, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.where(vm, torch.exp(s - m_new[..., None]), 0.0)
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] + torch.einsum("bhts,bsl->bhtl", p, czf)
+    out = acc_new / l_new[..., None].clamp_min(1e-30)      # (B,H,T,L)
+    return out.permute(0, 2, 1, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +400,51 @@ def decode_spec_pool(spec: dict, book, *, d: int, keep: int, trunc: int,
     return out
 
 
+def paged_mla(q_eff, q_rope, c_pool, kr_pool, table, length, *,
+              scale: float):
+    """Paged MLA attention in latent space over bf16 pools.
+
+    q_eff (B,T,H,L) f32 (q_nope absorbed through w_uk) · q_rope (B,T,H,R)
+    f32 · c_pool (NB,BS,L) · kr_pool (NB,BS,R) · table (B,MB) int32 ·
+    length (B,) int32. Returns unnormalised (acc (B,H,T,L), m (B,H,T),
+    l (B,H,T)) f32. CPU tensors take :func:`paged_mla_plain`; CUDA tensors
+    launch the kernel (``paged_mla.launches``) or raise."""
+    if q_eff.device.type == "cpu":
+        return paged_mla_plain(q_eff, q_rope, c_pool, kr_pool, table, length,
+                               scale=scale)
+    if q_eff.device.type != "cuda":
+        raise ValueError(f"paged_mla: unsupported device {q_eff.device}")
+    b, t, h, latent = q_eff.shape
+    r_dim = q_rope.shape[-1]
+    nb, bs = c_pool.shape[:2]
+    if latent not in MLA_LATENT_DIMS or not 1 <= r_dim <= MLA_MAX_ROPE:
+        raise ValueError(f"paged_mla: latent {latent}, rope {r_dim}; the "
+                         f"kernel takes latent in {MLA_LATENT_DIMS} and "
+                         f"rope in [1, {MLA_MAX_ROPE}]")
+    if not 1 <= bs <= MAX_BLOCK_SIZE:
+        raise ValueError(f"block size {bs} outside [1, {MAX_BLOCK_SIZE}]")
+    build.check(q_eff, "q_eff", torch.float32, (b, t, h, latent))
+    build.check(q_rope, "q_rope", torch.float32, (b, t, h, r_dim))
+    build.check(c_pool, "c_pool", torch.bfloat16, (nb, bs, latent))
+    build.check(kr_pool, "kr_pool", torch.bfloat16, (nb, bs, r_dim))
+    build.check(table, "table", torch.int32, (b, table.shape[1]))
+    build.check(length, "length", torch.int32, (b,))
+    dev = q_eff.device
+    acc = torch.empty((b, h, t, latent), dtype=torch.float32, device=dev)
+    m = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    l = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    fn = build.entry("paged_mla", "paged_mla_launch", 9, 8, 1)
+    err = fn(q_eff.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+             kr_pool.data_ptr(), table.data_ptr(), length.data_ptr(),
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, latent,
+             r_dim, nb, bs, table.shape[1], float(scale),
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.raise_on(err, "paged_mla")
+    paged_mla.launches += 1
+    return acc, m, l
+
+
 paged_gqa.launches = 0
 paged_gqa_packed.launches = 0
 decode_spec_pool.launches = 0
+paged_mla.launches = 0

@@ -10,9 +10,12 @@ engine, or through the continuous-batching scheduler, on the card.
 Cassandra-2 (MX; with ``--paged`` only with ``--attn-kernel off``, as in
 the reference). ``--smoke`` takes
 the reduced config; ``--device cpu`` runs the plain versions on the CPU.
-Weights are random, drawn from ``--seed``. The prefix cache
-(``--prefix-cache``, ``--shared-header``) and preemption (``--swap``) come
-with ROADMAP Queue 1 item 7.
+Weights are random, drawn from ``--seed``. ``--arch deepseek-v3-671b``
+is known, but its routed-expert layers (every layer past the first 3; 2
+of SMOKE's 3) raise ``NotImplementedError`` until MoE is ported: its
+dense layers run through the Python API (``chip_smoke.py`` serves them).
+The prefix cache (``--prefix-cache``, ``--shared-header``) and preemption
+(``--swap``) come with ROADMAP Queue 1.
 """
 from __future__ import annotations
 

@@ -1,11 +1,17 @@
-"""GQA attention (port of the GQA parts of ``models/attention.py``).
+"""GQA and MLA attention (port of ``models/attention.py``).
 
 ``_attend_dense`` serves decode (q = 1 or γ+1) and prompts up to 2048
 tokens; ``_attend_flash`` is the chunked online-softmax path beyond that,
-f32 accumulators throughout. ``gqa_attention_paged`` is cached decode
-over a paged cache through the table-walking kernels
-(``kernels/paged_attention``). MLA and cross-attention join with later
-slices (ROADMAP Queue 1 step 9).
+f32 accumulators throughout. ``gqa_attention_paged`` and
+``mla_attention_paged`` are cached decode over a paged cache through the
+table-walking kernels (``kernels/paged_attention``).
+
+MLA (deepseek) caches the latent ``c`` and the rope key ``kr`` instead of
+per-head K/V, and runs *absorbed* everywhere up to 2048 tokens: scores
+and context live in the latent space, so prefill, incremental decode and
+the paged kernel share one association order. Beyond 2048 prompt tokens
+``_attend_flash_latent`` chunks the same math. Cross-attention joins with
+the encoder-decoder slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -77,6 +83,54 @@ def _attend_flash(q, k, v, *, causal: bool, q_offset: int,
         outs.append(out.permute(0, 3, 1, 2, 4))              # (b,cq,hkv,g,dv)
     out = torch.cat(outs, dim=1).reshape(b, sq, h, dv)
     return out.to(q.dtype)
+
+
+def _attend_flash_latent(q_eff, q_rope, c, kr, *, causal: bool,
+                         scale: float, chunk_q: int = DEFAULT_CHUNK_Q,
+                         chunk_k: int = DEFAULT_CHUNK_K) -> torch.Tensor:
+    """Chunked online-softmax MLA attention in latent space.
+
+    q_eff (B,Sq,H,L) f32 (q_nope absorbed through w_uk), q_rope
+    (B,Sq,H,R), c (B,Sk,L), kr (B,Sk,R). The absorbed decode's association
+    order, chunked so the (Sq, Sk) scores never exist. Returns the latent
+    context (B,Sq,H,L) f32; the caller applies w_uv."""
+    b, sq, h, latent = q_eff.shape
+    sk = c.shape[1]
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    while sq % cq:
+        cq -= 1
+    while sk % ck:
+        ck -= 1
+    dev = q_eff.device
+    cf, krf = c.to(torch.float32), kr.to(torch.float32)
+    qrf = q_rope.to(torch.float32)
+    outs = []
+    for qi in range(sq // cq):
+        qe = q_eff[:, qi * cq:(qi + 1) * cq]
+        qr = qrf[:, qi * cq:(qi + 1) * cq]
+        qpos = qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, h, cq), NEG_INF, device=dev)
+        l = torch.zeros((b, h, cq), device=dev)
+        acc = torch.zeros((b, h, cq, latent), device=dev)
+        for kj in range(sk // ck):
+            cj = cf[:, kj * ck:(kj + 1) * ck]
+            krj = krf[:, kj * ck:(kj + 1) * ck]
+            s = (torch.einsum("bqhl,bkl->bhqk", qe, cj)
+                 + torch.einsum("bqhr,bkr->bhqk", qr, krj)) * scale
+            if causal:
+                kpos = kj * ck + torch.arange(ck, device=dev)
+                cm = qpos[:, None] >= kpos[None, :]
+                s = torch.where(cm[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bkl->bhql", p,
+                                                       cj)
+            m = m_new
+        ctx = acc / l[..., None].clamp_min(1e-30)              # (b,h,cq,L)
+        outs.append(ctx.permute(0, 2, 1, 3))                   # (b,cq,h,L)
+    return torch.cat(outs, dim=1)
 
 
 def causal_mask(sq: int, sk: int, q_offset, device=None) -> torch.Tensor:
@@ -166,8 +220,7 @@ def gqa_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
     """
     if cross_kv is not None:
         raise NotImplementedError("cross-attention belongs to the "
-                                  "encoder-decoder slice: ROADMAP Queue 1 "
-                                  "step 9")
+                                  "encoder-decoder slice: ROADMAP Queue 1")
     cfg = rt.cfg
     b, sq, _ = x.shape
     scale = 1.0 / (cfg.hd ** 0.5)
@@ -193,6 +246,110 @@ def gqa_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA block (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+def mla_latent(rt: Runtime, p: dict, x: torch.Tensor, positions):
+    """The cached quantities: latent c (B,S,kv_lora) and k_rope (B,S,rope)."""
+    cfg = rt.cfg
+    kv_full = L.dense(rt, p["kv_a"], x, "mla.kv_a")
+    c = L.rmsnorm(p["kv_a_norm"], kv_full[..., :cfg.kv_lora_rank],
+                  cfg.norm_eps)
+    k_rope = L.apply_rope(kv_full[..., cfg.kv_lora_rank:][:, :, None],
+                          positions, cfg.rope_theta)[:, :, 0]
+    return c, k_rope
+
+
+def _mla_q(rt: Runtime, p: dict, x: torch.Tensor, positions):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope))."""
+    cfg = rt.cfg
+    b, s, _ = x.shape
+    ql = L.rmsnorm(p["q_a_norm"], L.dense(rt, p["q_a"], x, "mla.q_a"),
+                   cfg.norm_eps)
+    q = L.dense(rt, p["q_b"], ql, "mla.q_b").reshape(
+        b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_rope = L.apply_rope(q[..., cfg.qk_nope_dim:], positions,
+                          cfg.rope_theta)
+    return q[..., :cfg.qk_nope_dim], q_rope
+
+
+def _kv_b_split(rt: Runtime, p: dict):
+    """(w_uk (L,H,nope), w_uv (L,H,v)) of ``kv_b`` in the runtime's view
+    (``layers.resolve_weight`` decodes a packed one)."""
+    cfg = rt.cfg
+    w = L.resolve_weight(rt, p["kv_b"]["w"], "mla.kv_b").reshape(
+        cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_dim + cfg.v_head_dim)
+    return w[..., :cfg.qk_nope_dim], w[..., cfg.qk_nope_dim:]
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / ((cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5)
+
+
+def _absorb_q(q_nope, w_uk) -> torch.Tensor:
+    """q_eff (B,S,H,L) f32: q_nope through w_uk."""
+    return torch.einsum("bqhn,lhn->bqhl", q_nope.to(torch.float32),
+                        w_uk.to(torch.float32))
+
+
+def _mla_out(rt: Runtime, p: dict, ctx, w_uv, x) -> torch.Tensor:
+    """Latent context (B,S,H,L) f32 through w_uv, then wo."""
+    cfg = rt.cfg
+    b, sq, _ = x.shape
+    out = torch.einsum("bqhl,lhn->bqhn", ctx,
+                       w_uv.to(torch.float32)).to(x.dtype)
+    out = out.reshape(b, sq, cfg.n_heads * cfg.v_head_dim)
+    return L.dense(rt, p["wo"], out, "mla.wo")
+
+
+def mla_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
+                  causal: bool = True, prefix_latent=None,
+                  prefix_valid=None):
+    """MLA layer over the (c, k_rope) latents. Returns (out, (c, kr)).
+
+    * full sequence (prefill): ``prefix_latent`` None; up to 2048 tokens
+      one absorbed softmax, beyond that ``_attend_flash_latent``;
+    * cached decode: ``prefix_latent`` = (c, kr) (B,S,·) with every latent
+      at its absolute position (cache view, draft scratch placed after
+      it) and ``prefix_valid`` (B|·,S) marking them; the new tokens'
+      latents are placed at ``positions`` (``place_at_positions``, as
+      ``gqa_attention`` does) and returned to commit.
+
+    The association order is the reference's: q_eff = q_nope·w_uk, then
+    latent scores q_eff·c + q_rope·kr, softmax, context p·c, then w_uv.
+    """
+    cfg = rt.cfg
+    sq = x.shape[1]
+    scale = _mla_scale(cfg)
+    q_nope, q_rope = _mla_q(rt, p, x, positions)
+    new_c, new_kr = mla_latent(rt, p, x, positions)
+    w_uk, w_uv = _kv_b_split(rt, p)
+    q_eff = _absorb_q(q_nope, w_uk)
+    if prefix_latent is None and sq > 2048:
+        ctx = _attend_flash_latent(q_eff, q_rope, new_c, new_kr,
+                                   causal=causal, scale=scale,
+                                   chunk_q=rt.attn_chunk_q,
+                                   chunk_k=rt.attn_chunk_k)
+        return _mla_out(rt, p, ctx, w_uv, x), (new_c, new_kr)
+    if prefix_latent is None:
+        c_all, kr_all = new_c, new_kr
+        mask = causal_mask(sq, sq, 0, x.device) if causal else None
+    else:
+        c_all, kr_all = place_at_positions(prefix_latent, (new_c, new_kr),
+                                           positions)
+        mask = position_mask(prefix_valid, positions, sq)
+    cf = c_all.to(torch.float32)
+    scores = (torch.einsum("bqhl,bkl->bhqk", q_eff, cf)
+              + torch.einsum("bqhr,bkr->bhqk", q_rope.to(torch.float32),
+                             kr_all.to(torch.float32))) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    pattn = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqk,bkl->bqhl", pattn, cf)
+    return _mla_out(rt, p, ctx, w_uv, x), (new_c, new_kr)
+
+
+# ---------------------------------------------------------------------------
 # Paged-kernel decode (attn_kernel="on"): the pool walk runs in
 # kernels/paged_attention; the scratch/new-token suffix, which lives outside
 # the pool, is folded in with one more flash step, then wo as usual.
@@ -208,6 +365,16 @@ def _suffix_valid(b: int, sq: int, g_scratch: int, scratch_len,
     tri = causal_mask(sq, sq, 0, device)[0]                # (1, Sq, Sq)
     parts.append(tri.expand(b, sq, sq))
     return torch.cat(parts, dim=-1)
+
+
+def _suffix(scratch: dict | None, new: dict) -> tuple:
+    """(scratch width, the suffix per store): the draft scratch, when
+    drafting, followed by the new tokens' entries (B, g+Sq, …)."""
+    if scratch is None:
+        return 0, tuple(new.values())
+    return next(iter(scratch.values())).shape[1], tuple(
+        torch.cat([scratch[nm], n.to(scratch[nm].dtype)], dim=1)
+        for nm, n in new.items())
 
 
 def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
@@ -240,15 +407,42 @@ def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
         _, k_pool, v_pool = kv_pools
         acc, m, l = PA.paged_gqa(qg, k_pool, v_pool, table, length,
                                  scale=scale)
-    if scratch is not None:
-        g_s = scratch["k"].shape[1]
-        suf_k = torch.cat([scratch["k"], new_k.to(scratch["k"].dtype)], dim=1)
-        suf_v = torch.cat([scratch["v"], new_v.to(scratch["v"].dtype)], dim=1)
-    else:
-        g_s = 0
-        suf_k, suf_v = new_k, new_v
+    g_s, (suf_k, suf_v) = _suffix(scratch, {"k": new_k, "v": new_v})
     suf_valid = _suffix_valid(b, sq, g_s, scratch_len, x.device)
     out = PA.merge_gqa_suffix(acc, m, l, qg, suf_k, suf_v, suf_valid,
                               scale=scale)                 # (B,Sq,hkv,g,hd)
     out = out.reshape(b, sq, cfg.n_heads * cfg.hd).to(x.dtype)
     return L.dense(rt, p["wo"], out, "attn.wo"), (new_k, new_v)
+
+
+def mla_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
+                        c_pool: torch.Tensor, kr_pool: torch.Tensor,
+                        table: torch.Tensor, length: torch.Tensor,
+                        scratch: dict | None, scratch_len):
+    """MLA cached decode through the paged latent-flash kernel.
+
+    ``c_pool`` (NB,BS,L) and ``kr_pool`` (NB,BS,R) are bf16 pools: a
+    packed cache is decoded to its draft or target view first (the
+    caller's ``read_store``), as the reference does. (The reference's
+    note that MLA caches cannot pack holds only for a rope dim below 32,
+    as in its SMOKE config; at DeepSeek-V3's widths, 512 and 64, both
+    stores pack under Cassandra-1.) The pool holds each row's committed
+    prefix; the draft scratch and the new tokens form the suffix, folded
+    in by ``merge_mla_suffix``. Returns (out, (new_c, new_kr)).
+    """
+    cfg = rt.cfg
+    b, sq, _ = x.shape
+    scale = _mla_scale(cfg)
+    q_nope, q_rope = _mla_q(rt, p, x, positions)
+    new_c, new_kr = mla_latent(rt, p, x, positions)
+    w_uk, w_uv = _kv_b_split(rt, p)
+    q_eff = _absorb_q(q_nope, w_uk).contiguous()
+    q_rope = q_rope.to(torch.float32).contiguous()
+    length = length.to(torch.int32).reshape(-1).expand(b).contiguous()
+    acc, m, l = PA.paged_mla(q_eff, q_rope, c_pool, kr_pool, table, length,
+                             scale=scale)
+    g_s, (suf_c, suf_kr) = _suffix(scratch, {"c": new_c, "kr": new_kr})
+    suf_valid = _suffix_valid(b, sq, g_s, scratch_len, x.device)
+    ctx = PA.merge_mla_suffix(acc, m, l, q_eff, q_rope, suf_c, suf_kr,
+                              suf_valid, scale=scale)      # (B,Sq,H,L)
+    return _mla_out(rt, p, ctx, w_uv, x), (new_c, new_kr)

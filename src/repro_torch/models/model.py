@@ -1,4 +1,5 @@
-"""Model assembly for the dense GQA family (port of ``models/model.py``).
+"""Model assembly for dense-FFN decoders with GQA or MLA attention (port
+of ``models/model.py``).
 
 ``forward_prefill`` — full-prompt pass that writes the (packed) KV cache
                       and returns last-position logits.
@@ -8,8 +9,11 @@
 
 Parameters keep the reference's tree: stacked ``(R, …)`` leaves per layer
 group, ``(in, out)`` weights. The reference's ``lax.scan`` over R is a
-Python loop here (``_scan_groups``). MLA, MoE, SSM and encoder-decoder
-models are ROADMAP Queue 1 step 9; training is there too.
+Python loop here (``_scan_groups``). MLA (deepseek) runs in the layers
+before its first routed-expert layer (``first_dense_layers``); MoE, SSM and
+encoder-decoder models are ROADMAP Queue 1, training too. Multi-token
+prediction heads (``mtp_depth``) feed only the reference's training loss,
+so serving neither builds nor reads them.
 """
 from __future__ import annotations
 
@@ -23,8 +27,8 @@ from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KC
 
 Params = dict
-_FAMILY = ("the port covers the dense GQA family; {what} is ROADMAP "
-           "Queue 1 step 9")
+_FAMILY = ("the port covers dense-FFN decoders with GQA or MLA attention; "
+           "{what} is ROADMAP Queue 1")
 # The reference fails on this combination too (paged_gqa_packed reads the
 # Cassandra-1 exponent leaves: KeyError 'exp_words'); neither package has a
 # Cassandra-2 packed attention kernel.
@@ -40,10 +44,14 @@ C2_PACKED_ATTN = (
 # ---------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
-    for what, off in (("MLA", cfg.mla), ("MoE", cfg.n_experts),
+    """Raise for what the port does not run. A config with experts runs
+    only when every layer is one of its ``first_dense_layers`` (deepseek-
+    v3 cut to its first 3 layers); ``mtp_depth`` is ignored (training
+    only)."""
+    routed = cfg.n_experts and cfg.n_layers > cfg.first_dense_layers
+    for what, off in (("MoE (routed-expert layers)", routed),
                       ("SSM", cfg.sub_quadratic), ("enc-dec", cfg.is_encdec),
                       ("a modality frontend", cfg.frontend),
-                      ("multi-token prediction", cfg.mtp_depth),
                       ("a non-SwiGLU FFN", cfg.ffn_act != "swiglu"),
                       ("the audio family", cfg.family == "audio")):
         if off:
@@ -65,13 +73,38 @@ def _dense_init(gen, r, n_in, n_out, dtype, device, bias=False, std=None):
     return p
 
 
+def _init_mla(gen, r: int, cfg: ModelConfig, dtype, device, ones) -> dict:
+    """The reference's ``_init_mla`` tree: low-rank q (q_a → norm → q_b),
+    the joint latent/rope projection kv_a, kv_b (latent → per-head k_nope
+    and v) and wo."""
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    hv = cfg.n_heads * cfg.v_head_dim
+    return {
+        "q_a": _dense_init(gen, r, cfg.d_model, cfg.q_lora_rank, dtype,
+                           device),
+        "q_a_norm": ones(r, cfg.q_lora_rank),
+        "q_b": _dense_init(gen, r, cfg.q_lora_rank, cfg.n_heads * qk, dtype,
+                           device),
+        "kv_a": _dense_init(gen, r, cfg.d_model,
+                            cfg.kv_lora_rank + cfg.qk_rope_dim, dtype,
+                            device),
+        "kv_a_norm": ones(r, cfg.kv_lora_rank),
+        "kv_b": _dense_init(gen, r, cfg.kv_lora_rank,
+                            cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim),
+                            dtype, device),
+        "wo": _dense_init(gen, r, hv, cfg.d_model, dtype, device,
+                          std=hv ** -0.5 / (2 * cfg.n_layers) ** 0.5),
+    }
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda") -> Params:
     """Random weights with the reference's distributions (``model.py``
     ``_dense_init``/``init_params``): N(0, 1/n_in) projections, output
     projections scaled by 1/sqrt(2·n_layers), N(0, 0.02²) embedding and
     lm_head, unit norms. Draws come from ``generator`` (on ``device``),
-    one layer at a time, so no full-depth f32 tensor ever exists."""
+    one layer at a time, so no full-depth f32 tensor ever exists. The
+    tree is the reference's without its ``mtp`` head (training only)."""
     _check_dense(cfg)
     hd = cfg.hd
     ones = lambda r, d: {"scale": torch.ones((r, d), dtype=torch.float32,
@@ -81,24 +114,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         r = g.repeats
         gdict = {}
         for j, _entry in enumerate(g.entries):
-            attn = {
-                "wq": _dense_init(generator, r, cfg.d_model,
-                                  cfg.n_heads * hd, dtype, device,
-                                  cfg.qkv_bias),
-                "wk": _dense_init(generator, r, cfg.d_model,
-                                  cfg.n_kv_heads * hd, dtype, device,
-                                  cfg.qkv_bias),
-                "wv": _dense_init(generator, r, cfg.d_model,
-                                  cfg.n_kv_heads * hd, dtype, device,
-                                  cfg.qkv_bias),
-                "wo": _dense_init(generator, r, cfg.n_heads * hd,
-                                  cfg.d_model, dtype, device,
-                                  std=(cfg.n_heads * hd) ** -0.5
-                                  / (2 * cfg.n_layers) ** 0.5),
-            }
-            if cfg.qk_norm:
-                attn["q_norm"] = ones(r, hd)
-                attn["k_norm"] = ones(r, hd)
+            if cfg.mla:
+                attn = _init_mla(generator, r, cfg, dtype, device, ones)
+            else:
+                attn = {
+                    "wq": _dense_init(generator, r, cfg.d_model,
+                                      cfg.n_heads * hd, dtype, device,
+                                      cfg.qkv_bias),
+                    "wk": _dense_init(generator, r, cfg.d_model,
+                                      cfg.n_kv_heads * hd, dtype, device,
+                                      cfg.qkv_bias),
+                    "wv": _dense_init(generator, r, cfg.d_model,
+                                      cfg.n_kv_heads * hd, dtype, device,
+                                      cfg.qkv_bias),
+                    "wo": _dense_init(generator, r, cfg.n_heads * hd,
+                                      cfg.d_model, dtype, device,
+                                      std=(cfg.n_heads * hd) ** -0.5
+                                      / (2 * cfg.n_layers) ** 0.5),
+                }
+                if cfg.qk_norm:
+                    attn["q_norm"] = ones(r, hd)
+                    attn["k_norm"] = ones(r, hd)
             ffn = {
                 "w_up": _dense_init(generator, r, cfg.d_model, cfg.d_ff,
                                     dtype, device),
@@ -145,6 +181,10 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
     cfg = rt.cfg
     view = "draft" if rt.view == "draft" else "target"
     if centry is None:                       # prefill: full sequence
+        if cfg.mla:
+            out, lat = A.mla_attention(rt, bp["attn"], x, positions,
+                                       causal=causal)
+            return out, {"c": lat[0], "kr": lat[1]}
         out, kv = A.gqa_attention(rt, bp["attn"], x, positions,
                                   causal=causal)
         return out, {"k": kv[0], "v": kv[1]}
@@ -157,42 +197,58 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
                                  scratch_len=scratch_len, book=book,
                                  ventry=ventry, table=table)
     # prefix = cache view with the draft scratch placed after each row's
-    # length: every key at its absolute position (see gqa_attention)
+    # length: every key (MLA: latent) at its absolute position (see
+    # gqa_attention)
     dev = x.device
     start = length[:, None] if length.ndim == 1 else length
     valid = torch.arange(s_max, device=dev) < start + scratch_len
+    dims = KC.store_dims(cfg)
     if ventry is not None:
-        pk, pv = ventry["k"], ventry["v"]
+        pre = tuple(ventry[nm] for nm in dims)
         if table is not None:
-            pk = KC.gather_block_leaf(pk, table)
-            pv = KC.gather_block_leaf(pv, table)
+            pre = tuple(KC.gather_block_leaf(p, table) for p in pre)
     else:
-        sk, sv = centry["k"], centry["v"]
-        if table is not None:
-            sk, sv = KC.gather_store(sk, table), KC.gather_store(sv, table)
-        pk = KC.read_store(rt.cass, sk, cfg.hd, view, book)
-        pv = KC.read_store(rt.cass, sv, cfg.hd, view, book)
+        gather = (lambda st: st) if table is None else (
+            lambda st: KC.gather_store(st, table))
+        pre = tuple(KC.read_store(rt.cass, gather(centry[nm]), d, view, book)
+                    for nm, d in dims.items())
     if scratch is not None:
-        spos = start + torch.arange(scratch["k"].shape[1], device=dev)
-        pk, pv = A.place_at_positions((pk, pv), (scratch["k"],
-                                                 scratch["v"]), spos)
+        new = tuple(scratch[nm] for nm in dims)
+        spos = start + torch.arange(new[0].shape[1], device=dev)
+        pre = A.place_at_positions(pre, new, spos)
+    if cfg.mla:
+        out, (nc, nkr) = A.mla_attention(rt, bp["attn"], x, positions,
+                                         prefix_latent=pre,
+                                         prefix_valid=valid)
+        return out, {"c": nc, "kr": nkr}
     out, (nk, nv) = A.gqa_attention(rt, bp["attn"], x, positions,
-                                    prefix_kv=(pk, pv), prefix_valid=valid)
+                                    prefix_kv=pre, prefix_valid=valid)
     return out, {"k": nk, "v": nv}
 
 
 def _attn_entry_paged(rt: Runtime, bp: dict, x, positions, *, centry,
                       scratch, length, scratch_len, book, ventry, table):
-    """Cached decode through ``kernels/paged_attention`` (GQA).
+    """Cached decode through ``kernels/paged_attention``.
 
     The pool stays in pool layout and no row's prefix is gathered. A
-    packed cache feeds the draft pass its speculation leaves directly: the
-    Cassandra decode runs inside the kernel. The verify pass (target view)
-    reads a dense pool (``ventry`` or ``read_store`` over the whole pool)
-    through the plain kernel.
+    packed GQA cache feeds the draft pass its speculation leaves directly:
+    the Cassandra decode runs inside the kernel. The verify pass (target
+    view) reads a dense pool (``ventry`` or ``read_store`` over the whole
+    pool) through the plain kernel. MLA pools, packed or not, are read as
+    dense views the same way (both passes) and walked by ``paged_mla``:
+    neither package has a packed MLA kernel.
     """
     cfg, cass = rt.cfg, rt.cass
     view = "draft" if rt.view == "draft" else "target"
+    if cfg.mla:
+        pc, pkr = (ventry[nm] if ventry is not None
+                   else KC.read_store(cass, centry[nm], d, view, book)
+                   for nm, d in KC.store_dims(cfg).items())
+        out, (nc, nkr) = A.mla_attention_paged(
+            rt, bp["attn"], x, positions, c_pool=pc.contiguous(),
+            kr_pool=pkr.contiguous(), table=table, length=length,
+            scratch=scratch, scratch_len=scratch_len)
+        return out, {"c": nc, "kr": nkr}
     if ventry is None and KC.is_packed(centry["k"]) and view == "draft":
         if cass.variant != 1:
             raise ValueError(C2_PACKED_ATTN)
@@ -309,9 +365,9 @@ def _commit_prefill(rt: Runtime, cache, updates_groups, s, book):
     for gi, g_upd in enumerate(updates_groups):
         for ekey, upd in g_upd.items():
             centry = cache["dec"][gi][ekey]
-            for name in ("k", "v"):
-                new = upd[name]                              # (R,B,S,Hkv,hd)
-                enc = (KC.encode_store(cass, new, cfg.hd, book)
+            for name, d in KC.store_dims(cfg).items():
+                new = upd[name]                              # (R,B,S,…,d)
+                enc = (KC.encode_store(cass, new, d, book)
                        if book is not None else new)
                 for r in range(new.shape[0]):
                     KC.append_store(_index(centry[name], r),
@@ -338,8 +394,8 @@ def materialize_cache_view(rt: Runtime, cache: dict) -> list | None:
         for j, _entry in enumerate(g.entries):
             centry = cache["dec"][gi][f"e{j}"]
             gdict[f"e{j}"] = {
-                nm: KC.read_store(cass, centry[nm], cfg.hd, view, book)
-                for nm in ("k", "v")}
+                nm: KC.read_store(cass, centry[nm], d, view, book)
+                for nm, d in KC.store_dims(cfg).items()}
         groups.append(gdict)
     return groups
 
@@ -350,7 +406,8 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
     """q new tokens against the cache. Returns (logits, updates).
 
     ``updates`` mirrors the cache groups: per attention entry the new
-    tokens' K/V (R,B,q,Hkv,hd) for the engine to commit. Rows are
+    tokens' K/V (R,B,q,Hkv,hd) or MLA latents (R,B,q,·) for the engine to
+    commit. Rows are
     independent: per-row ``length`` offsets positions and masks. A paged
     cache's ``block_table`` addresses its pools.
     """
@@ -381,7 +438,7 @@ def _cache_s_max(cfg: ModelConfig, cache: dict) -> int:
     mb = cache["block_table"].shape[1] if KC.is_paged(cache) else 1
     for g in cache["dec"]:
         for e in g.values():
-            leaf = e["k"]
+            leaf = next(iter(e.values()))
             if KC.is_packed(leaf):
                 leaf = leaf["spec"]["bitmap"]
             return mb * leaf.shape[2]                 # (R,B,S,…) | (R,NB,BS,…)

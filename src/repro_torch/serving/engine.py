@@ -131,17 +131,19 @@ def validate_request_slos(*, ttft_deadline_ms: float | None = None,
 # ---------------------------------------------------------------------------
 
 def make_scratch(cfg: ModelConfig, cache: dict, gamma: int) -> list:
-    """γ-slot KV scratch per attention entry, (R,B,γ,Hkv,hd) bf16 (the
+    """γ-slot scratch per attention entry and store, bf16: (R,B,γ,Hkv,hd)
+    K and V for GQA, (R,B,γ,L) ``c`` and (R,B,γ,R) ``kr`` for MLA (the
     batch comes from ``length``: paged pools have no batch axis)."""
     b = cache["length"].shape[0]
     dev = cache["length"].device
+    heads = KC.store_heads(cfg)
     groups = []
     for g in layer_groups(cfg):
-        shape = (g.repeats, b, gamma, cfg.n_kv_heads, cfg.hd)
-        groups.append({f"e{j}": {nm: torch.zeros(shape, dtype=torch.bfloat16,
-                                                 device=dev)
-                                 for nm in ("k", "v")}
-                       for j in range(len(g.entries))})
+        groups.append({f"e{j}": {
+            nm: torch.zeros((g.repeats, b, gamma, *heads, d),
+                            dtype=torch.bfloat16, device=dev)
+            for nm, d in KC.store_dims(cfg).items()}
+            for j in range(len(g.entries))})
     return groups
 
 
@@ -149,8 +151,8 @@ def _scratch_write(scratch: list, updates: list, slot: int) -> list:
     """Place draft-step updates (R,B,1,…) into scratch slot ``slot``."""
     for gdict, gupd in zip(scratch, updates):
         for ekey, upd in gupd.items():
-            for nm in ("k", "v"):
-                gdict[ekey][nm][:, :, slot:slot + 1] = upd[nm].to(
+            for nm, new in upd.items():
+                gdict[ekey][nm][:, :, slot:slot + 1] = new.to(
                     gdict[ekey][nm].dtype)
     return scratch
 
@@ -161,9 +163,10 @@ def _scratch_write(scratch: list, updates: list, slot: int) -> list:
 
 def commit(rt: Runtime, cache: dict, updates: list,
            n: torch.Tensor) -> dict:
-    """Append target-recomputed K/V for n+1 accepted tokens per row: into
-    each row's slot region, or through the block table into the pool. The
-    new ``length`` is a new tensor; the stores are written in place."""
+    """Append target-recomputed K/V (MLA: latents) for n+1 accepted tokens
+    per row: into each row's slot region, or through the block table into
+    the pool. The new ``length`` is a new tensor; the stores are written in
+    place."""
     cfg, cass = rt.cfg, rt.cass
     book = KC.cache_codebook(cache)
     length = cache["length"]
@@ -171,10 +174,10 @@ def commit(rt: Runtime, cache: dict, updates: list,
     for gi, gupd in enumerate(updates):
         for ekey, upd in gupd.items():
             centry = cache["dec"][gi][ekey]
-            for nm in ("k", "v"):
+            for nm, d in KC.store_dims(cfg).items():
                 new = upd[nm]                                  # (R,B,q,…)
                 if book is not None:
-                    new = KC.encode_store(cass, new, cfg.hd, book)
+                    new = KC.encode_store(cass, new, d, book)
                 for r in range(upd[nm].shape[0]):
                     KC.append_batched(M._index(centry[nm], r),
                                       M._index(new, r), length, table)

@@ -10,6 +10,7 @@ Layout (R = repeats of the layer group; every request owns a contiguous
 (S_max,) row)::
 
   attn (GQA)  {"k": store, "v": store}    store leaf (R,B,S,Hkv,1,*)
+  attn (MLA)  {"c": store, "kr": store}   latent + rope key, (R,B,S,1,*)
 
 plain store = bf16 tensor; packed store = {"spec": {...}, "verif": {...}}.
 The cache also carries ``length`` (B,) int32 and, when packed, the book
@@ -27,7 +28,12 @@ Two layouts share the store codecs:
 Appends write into the cache's tensors in place (the reference returns
 new arrays); callers never read a cache again after committing to it, so
 no copy of the stores is ever needed. Block copies, spill and restore
-(prefix cache, swap) are ROADMAP Queue 1 item 7.
+(prefix cache, swap) are ROADMAP Queue 1.
+
+MLA stores pack like GQA's when their widths are multiples of 32 (the
+32-lane bitmap): DeepSeek-V3's ``c`` (512) and ``kr`` (64) both do, and
+the reference packs them under Cassandra-1 too. A 16-wide rope key (the
+reference's SMOKE config) cannot pack in either package.
 """
 from __future__ import annotations
 
@@ -224,6 +230,20 @@ def append_batched(store, new_store, at: torch.Tensor, table=None):
 # Cache construction
 # ---------------------------------------------------------------------------
 
+def store_dims(cfg: ModelConfig) -> dict:
+    """Each attention entry's stores and their vector widths: GQA's
+    per-head K and V, or MLA's latent ``c`` and rope key ``kr``."""
+    if cfg.mla:
+        return {"c": cfg.kv_lora_rank, "kr": cfg.qk_rope_dim}
+    return {"k": cfg.hd, "v": cfg.hd}
+
+
+def store_heads(cfg: ModelConfig) -> tuple:
+    """The head axis of a store leaf: (Hkv,) for GQA, none for MLA (one
+    latent per token, shared by every head)."""
+    return () if cfg.mla else (cfg.n_kv_heads,)
+
+
 def _store_struct(cass, lead: tuple, d: int, packed: bool):
     """(shape, dtype) table of one store: a packed store's leaf shapes come
     from encoding one zero vector on the CPU."""
@@ -238,16 +258,16 @@ def _store_struct(cass, lead: tuple, d: int, packed: bool):
 def cache_specs(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
                 s_max: int, packed: bool) -> dict:
     """Plain shape table of the full cache: leaves are (shape, dtype)."""
-    if cfg.cross_attention or cfg.mla or cfg.sub_quadratic:
+    if cfg.cross_attention or cfg.sub_quadratic:
         raise NotImplementedError(
-            f"{cfg.name}: the port's cache holds GQA stores only; MLA, SSM "
-            "and cross-attention caches are ROADMAP Queue 1 step 9")
+            f"{cfg.name}: the port's cache holds GQA and MLA stores only; "
+            "SSM and cross-attention caches are ROADMAP Queue 1")
     cache: dict = {"dec": [], "length": ((b,), torch.int32)}
     for g in layer_groups(cfg):
-        lead = (g.repeats, b, s_max, cfg.n_kv_heads)
+        lead = (g.repeats, b, s_max, *store_heads(cfg))
         cache["dec"].append({
-            f"e{j}": {"k": _store_struct(cass, lead, cfg.hd, packed),
-                      "v": _store_struct(cass, lead, cfg.hd, packed)}
+            f"e{j}": {nm: _store_struct(cass, lead, d, packed)
+                      for nm, d in store_dims(cfg).items()}
             for j in range(len(g.entries))})
     if packed:
         cache["book_exp_of_rank"] = ((256,), torch.uint8)

@@ -266,6 +266,141 @@ def test_paged_scheduler_on_card_counts_launches(card):
 
 
 # ---------------------------------------------------------------------------
+# MLA: paged_mla, the Engine and the paged scheduler
+# ---------------------------------------------------------------------------
+
+def _mla_inputs(card, *, lat, rope, t, bs, seed, nb=32, b=4, h=8, mb=6):
+    """Latent pools with NaN in every row no valid position reads (trash
+    block, unused blocks, tails of partial blocks), a table with
+    out-of-range entries in masked slots and ragged lengths (one 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(nb - 1, generator=gen) + 1
+    table = perm[:b * mb].reshape(b, mb).to(torch.int32)
+    length = torch.tensor([mb * bs - 3, 0, bs * 2 + 1, 1][:b],
+                          dtype=torch.int32)
+    c = torch.randn((nb, bs, lat), generator=gen).to(torch.bfloat16)
+    kr = torch.randn((nb, bs, rope), generator=gen).to(torch.bfloat16)
+    live = torch.zeros((nb, bs), dtype=torch.bool)
+    for row in range(b):
+        for j in range(mb):
+            n = min(bs, int(length[row]) - j * bs)
+            if n > 0:
+                live[table[row, j], :n] = True
+            else:
+                table[row, j] = (-5, nb + 3, 0)[(row + j) % 3]
+    c[~live], kr[~live] = float("nan"), float("nan")
+    q_eff = torch.randn((b, t, h, lat), generator=gen)
+    q_rope = torch.randn((b, t, h, rope), generator=gen)
+    return tuple(x.to(card) for x in (q_eff, q_rope, c, kr, table, length))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("lat,rope,bs", [(64, 16, 4), (512, 64, 16),
+                                         (128, 32, 32)])
+def test_paged_mla_matches_plain_on_card(card, t, lat, rope, bs):
+    """(acc, m, l) within rtol 1e-4 / atol 1e-5 of the plain version (same
+    f32 steps, other sum orders), no masked NaN in the state, the empty
+    row exactly initial."""
+    from repro_torch.kernels import paged_attention as PA
+    args = _mla_inputs(card, lat=lat, rope=rope, t=t, bs=bs,
+                       seed=t * 7 + lat)
+    scale = (128 + rope) ** -0.5
+    before = PA.paged_mla.launches
+    got = PA.paged_mla(*args, scale=scale)
+    want = PA.paged_mla_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert PA.paged_mla.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    acc, m, l = got
+    assert (acc[1] == 0).all() and (m[1] == PA.NEG_INF).all() \
+        and (l[1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_paged_mla_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import paged_attention as PA
+    q_eff, q_rope, c, kr, table, length = _mla_inputs(
+        card, lat=64, rope=16, t=1, bs=4, seed=3)
+    with pytest.raises(TypeError, match="dtype"):
+        PA.paged_mla(q_eff.bfloat16(), q_rope, c, kr, table, length,
+                     scale=1.0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        PA.paged_mla(q_eff, q_rope, c.cpu(), kr, table, length, scale=1.0)
+    with pytest.raises(ValueError, match="latent 48"):
+        PA.paged_mla(q_eff[..., :48].contiguous(), q_rope,
+                     c[..., :48].contiguous(), kr, table, length, scale=1.0)
+    with pytest.raises(ValueError, match="shape"):
+        PA.paged_mla(q_eff, q_rope, c, kr[..., :8].contiguous(), table,
+                     length, scale=1.0)
+
+
+def _mla_smoke(card):
+    """deepseek-v3 SMOKE cut to its dense layers, rope 32 (packable), C-1,
+    random weights on the card."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b", smoke=True),
+                              n_layers=2, first_dense_layers=2,
+                              qk_rope_dim=32)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device=card).manual_seed(0)
+    plain = init_params(cfg, gen, device=card)
+    return cfg, cass, plain, format_params(plain, cass), gen
+
+
+@pytest.mark.cuda
+def test_mla_engine_on_card_spec_equals_verify_width_ar(card):
+    """C-1 speculative tokens equal autoregressive steps run at the verify
+    width on every position; every KV commit encodes c and kr through
+    kv_topk."""
+    from repro_torch.kernels import kv_topk as KT
+    cfg, cass, _, packed, gen = _mla_smoke(card)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
+                           device=card).to(torch.int32)
+    eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=3))
+    before = KT.kv_topk.launches
+    spec, st = eng.generate({"tokens": prompt}, max_new=12)
+    assert KT.kv_topk.launches - before == 2 * (1 + st["cycles"])
+    assert AR.verify_gap(eng, prompt, 3, 4) == 0.0
+    toks, _ = AR.ar_steps(eng, prompt, 12, 4)
+    assert torch.equal(spec[:, :12].cpu(), toks.cpu())
+
+
+@pytest.mark.cuda
+def test_mla_scheduler_on_card_counts_launches(card):
+    """The paged scheduler on the MLA model with the kernel on: every pass
+    (draft, verify, prefill chunk) runs ``paged_mla`` once per layer;
+    fused == alternating and overlap on == off, bit for bit; the bf16
+    autoregressive baseline runs it once per layer per step."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving.scheduler import Scheduler
+    cfg, cass, plain, packed, gen = _mla_smoke(card)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
+                            device=card).cpu().numpy()
+    outs = {}
+    for name, params, c, kw in (("fused", packed, cass, {}),
+                                ("alt", packed, cass, {"fused": False}),
+                                ("sync", packed, cass, {"overlap": False}),
+                                ("ar", plain, None, {})):
+        sched = Scheduler(cfg, params, cass=c, ecfg=EngineConfig(gamma=3),
+                          num_slots=3, s_max=48, paged=True, block_size=4,
+                          chunk_size=8, attn_kernel="on",
+                          speculative=c is not None, **kw)
+        reqs = [sched.submit(p, max_new=10) for p in prompts]
+        before = PA.paged_mla.launches
+        sched.run()
+        s = sched.summary()
+        drafts = 3 * (s["cycles"] - s["prefill_cycles"] + s["mixed_cycles"])
+        passes = s["cycles"] + (drafts if c is not None else 0)
+        assert PA.paged_mla.launches - before == passes * cfg.n_layers, name
+        assert all(len(r.output) == 10 for r in reqs)
+        outs[name] = [r.output for r in reqs]
+    assert outs["fused"] == outs["alt"] == outs["sync"]
+
+
+# ---------------------------------------------------------------------------
 # Codec kernels (mx_decode, kv_topk, unary_decode)
 # ---------------------------------------------------------------------------
 
@@ -318,7 +453,7 @@ def _topk_rows(gen, rows, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,keep", [(128, 80), (64, 32), (32, 16),
-                                    (256, 160), (128, 128)])
+                                    (256, 160), (128, 128), (512, 304)])
 def test_kv_topk_matches_plain_on_card(card, d, keep):
     """bitmap, kept and pruned bit for bit (NaN payloads included) on
     random rows and forced ties, +-0, all-equal, NaN and inf rows."""

@@ -124,7 +124,7 @@ def test_build_is_lazy_and_content_addressed():
     """Importing the port never runs nvcc; the library name carries a hash
     of the source and flags, under the ignored build/ directory."""
     assert build.sources() == ["draft_matmul", "kv_topk", "mx_decode",
-                               "paged_gqa", "unary_decode"]
+                               "paged_gqa", "paged_mla", "unary_decode"]
     target = build._target("draft_matmul")
     assert target.parent == build.BUILD_DIR
     assert target.parent.parts[-2:] == ("build", "kernels")

@@ -230,7 +230,8 @@ def test_layers_match_reference():
                       JL.embed({"table": jnp.asarray(table)}, jnp.asarray(idx)))
 
 
-@pytest.mark.parametrize("change", [dict(mla=True), dict(n_experts=4),
+@pytest.mark.parametrize("change", [dict(mla=True, n_experts=4),
+                                    dict(n_experts=4),
                                     dict(block_pattern=("sm",)),
                                     dict(ffn_act="gelu")])
 def test_other_families_raise(change):
