@@ -14,9 +14,10 @@ these phases; any failure exits non-zero:
               byte report;
 4. kernels  — each kernel of the main path against its plain PyTorch
               version at the main path's shapes (M=4, the model's own
-              packed weights): decoded weights bit for bit (identity rows),
-              y within rtol 2e-2 / atol 1e-3; kernel, plain, library and
-              bound times per shape and per draft pass;
+              packed weights): decoded weights bit for bit (identity rows,
+              M = n_in, timed), y within rtol 2e-2 / atol 1e-3; kernel,
+              plain, library and bound times per shape and per draft pass
+              (kernel and library by CUDA-graph replay, eager beside);
 5. small    — the SMOKE config on the card against the same weights on
               the CPU (plain versions): prefill and draft-pass logits;
 6. main     — ``Engine.generate`` on 4 requests × 128-token prompts ×
@@ -32,7 +33,8 @@ these phases; any failure exits non-zero:
               entries) and on synthetic 4 × 4096-token pools, T ∈ {1, 4,
               32}: the packed kernel's decode bit for bit, (acc, m, l) and
               the merged output within rtol 1e-4 / atol 1e-5; kernel,
-              bound, plain and library µs per shape;
+              bound, plain and library µs per shape (kernel and library by
+              CUDA-graph replay, eager beside);
 4c. codec   — ``unary_decode`` on the C-1 model's own exponent regions
               and arbitrary words, ``kv_topk`` on a prefill's K and V and
               on rows with ties, +-0 and all-equal values: bit for bit
@@ -64,7 +66,9 @@ these phases; any failure exits non-zero:
               limitation;
 11. mla kernels — DeepSeek-V3 at full width cut to its 3 dense layers
               (no routed expert), random weights from ``--seed`` on a
-              generator of its own, Cassandra-1 (γ=3): ``paged_mla``
+              generator of its own, Cassandra-1 (γ=3): ``draft_matmul``
+              per shape on the model's own weights as in phase 4 (q_a, q_b,
+              kv_a, o, gate/up, down, lm_head); ``paged_mla``
               against its plain version on the model's own pools after a
               128-token chunked prefill (NaN in every pool row no valid
               position reads, an empty row, out-of-range table entries)
@@ -98,7 +102,10 @@ their inputs from ``--seed``, the later ones from generators of their
 own.
 
 Every time is measured on the card in this run (CUDA events, or the host
-clock around work that ends in ``torch.cuda.synchronize()``).
+clock around work that ends in ``torch.cuda.synchronize()``). Where a
+kernel's row says "graph replay", the calls were captured in one CUDA
+graph and replayed, so the time is the card's alone: an eager loop of
+calls measures the host's launch rate wherever that is slower.
 """
 from __future__ import annotations
 
@@ -150,6 +157,29 @@ def cuda_ms(fn, reps: int) -> float:
 # Phase 4: the draft kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` calls replayed from
+    one CUDA graph: the kernels' own time. The eager loop of ``cuda_ms``
+    measures the host instead wherever it launches slower than the card
+    runs (the wrappers' Python and ctypes work, ~10-30 us a call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def _weights_by_shape(packed, cfg) -> dict:
     """One packed weight of the model per distinct main-path shape, and how
     many products of that shape one draft pass runs."""
@@ -164,6 +194,22 @@ def _weights_by_shape(packed, cfg) -> dict:
     }
 
 
+def _mla_weights_by_shape(packed, cfg) -> dict:
+    """The MLA model's draft products (its dense layers; kv_b's draft view
+    is decoded per pass by ``resolve_weight``, not by the kernel)."""
+    e0 = packed["dec"][0]["e0"]
+    r = cfg.n_layers
+    return {
+        "q_a": (e0["attn"]["q_a"]["w"], r),
+        "q_b": (e0["attn"]["q_b"]["w"], r),
+        "kv_a": (e0["attn"]["kv_a"]["w"], r),
+        "o": (e0["attn"]["wo"]["w"], r),
+        "gate/up": (e0["ffn"]["w_gate"]["w"], 2 * r),
+        "down": (e0["ffn"]["w_down"]["w"], r),
+        "lm_head": (packed["lm_head"]["w"], 1),
+    }
+
+
 def _layer(w: dict, r: int) -> dict:
     """Layer ``r`` of a stacked packed weight (a 2-D weight is its own)."""
     if w["spec"]["bitmap"].ndim == 3:
@@ -171,15 +217,26 @@ def _layer(w: dict, r: int) -> dict:
     return {z: {k: v[r] for k, v in w[z].items()} for z in ("spec", "kernel")}
 
 
-def kernel_phase(packed, cfg, cass, gen) -> dict:
+COLD_BYTES = 100e6                 # > 2 x the 50 MB L2: every launch cold
+
+
+def draft_shapes(weights: dict, cass, gen, tag: str) -> dict:
+    """``draft_matmul`` against its plain version at M=4 on a model's own
+    packed weights, per shape: the decoded weight bit for bit (identity
+    rows, M = n_in, timed), y within RTOL / ATOL; kernel and library
+    (``torch.matmul`` on the decoded bf16 weights) timed on the card's
+    clock by graph replay and eagerly, plain and bound per launch. Each
+    timed launch reads a cold weight: the rotation runs over the model's
+    layers, cloned until it holds COLD_BYTES."""
     import torch
     from repro_torch.kernels import draft_matmul as DM
 
     m = 4
-    rows, agg = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                     "bound_ms": 0.0, "bytes": 0, "ops": 0}
+    rows, agg = [], {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
+                     "library_ms": 0.0, "library_eager_ms": 0.0,
+                     "bound_ms": 0.0, "bytes": 0, "ops": 0, "launches": 0}
     max_err = 0.0
-    for name, (w, per_pass) in _weights_by_shape(packed, cfg).items():
+    for name, (w, per_pass) in weights.items():
         n_in, n_out = DM.packed_shape(w)
         block = cass.weight_block(n_in)
         keep = cass.weight_keep(block)
@@ -195,18 +252,26 @@ def kernel_phase(packed, cfg, cass, gen) -> dict:
                     lw["kernel"]["book"])
 
         layer_ops = [ops_of(r) for r in range(n_layers)]
+        op_bytes = sum(t.numel() * 4 for t in layer_ops[0])
+        copies = max(1, math.ceil(COLD_BYTES / (op_bytes * n_layers)))
+        rot = layer_ops + [tuple(t.clone() for t in o)
+                           for _ in range(copies - 1) for o in layer_ops]
         x = torch.randn((m, n_in), generator=gen, device="cuda").to(
             torch.bfloat16)
         # (a) decoded weight, bit for bit (identity rows through the kernel)
         eye = torch.eye(n_in, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         w_kernel = DM.draft_matmul(eye, *layer_ops[0], **kw).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        eye_s = time.perf_counter() - t0
         del eye
         w_plain = DM.draft_weight_plain(*layer_ops[0], **kw)
         if not torch.equal(w_kernel.view(torch.int16),
                            w_plain.contiguous().view(torch.int16)):
             bad = (w_kernel.view(torch.int16)
                    != w_plain.contiguous().view(torch.int16)).sum().item()
-            fail(f"{name}: decoded draft weight differs from the plain "
+            fail(f"{tag} {name}: decoded draft weight differs from the plain "
                  f"version in {bad} of {w_plain.numel()} values")
         del w_kernel
         # (b) y at M=4 against the plain version
@@ -214,58 +279,75 @@ def kernel_phase(packed, cfg, cass, gen) -> dict:
         y_plain = DM.draft_matmul_plain(x, *layer_ops[0], **kw)
         torch.cuda.synchronize()
         if not torch.isfinite(y).all():
-            fail(f"{name}: kernel output is not finite")
+            fail(f"{tag} {name}: kernel output is not finite")
         err = (y - y_plain).abs().max().item()
         if not torch.allclose(y, y_plain, rtol=RTOL, atol=ATOL):
-            fail(f"{name}: kernel y differs from the plain version "
+            fail(f"{tag} {name}: kernel y differs from the plain version "
                  f"(max abs err {err})")
         max_err = max(max_err, err)
         del y, y_plain
-        # (c) times: one launch per layer in turn, so no weight is warm in
-        # L2 from its previous launch (each shape's layers hold > 50 MB,
-        # lm_head alone ~360 MB)
+        # (c) times, one launch per rotated weight in turn
         def run_kernel():
-            for o in layer_ops:
+            for o in rot:
                 DM.draft_matmul(x, *o, **kw)
-        reps = max(1, 64 // n_layers)
-        k_ms = cuda_ms(run_kernel, reps) / n_layers
+        reps = max(1, 64 // len(rot))
+        k_ms = graph_ms(run_kernel, reps) / len(rot)
+        k_eager = cuda_ms(run_kernel, reps) / len(rot)
         n_plain = min(n_layers, 2)
         plain_ms = cuda_ms(lambda: [DM.draft_matmul_plain(x, *o, **kw)
                                     for o in layer_ops[:n_plain]], 1) / n_plain
-        dense = [w_plain] + [
-            DM.draft_weight_plain(*o, **kw) for o in layer_ops[1:]]
-        dense = [d.contiguous() for d in dense]
+        dense = [w_plain.contiguous()] + [
+            DM.draft_weight_plain(*o, **kw).contiguous() for o in rot[1:]]
         del w_plain
-        lib_ms = cuda_ms(lambda: [torch.matmul(x, d) for d in dense],
-                         reps) / n_layers
-        del dense
+
+        def run_library():
+            for d in dense:
+                torch.matmul(x, d)
+        lib_ms = graph_ms(run_library, reps) / len(dense)
+        lib_eager = cuda_ms(run_library, reps) / len(dense)
+        del dense, rot
         bitmap, sm, e3, em, bk = layer_ops[0]
         nbytes = (x.numel() * 2 + sum(t.numel() * 4
                                       for t in (bitmap, sm, e3, em, bk))
                   + m * n_out * 4)
         ops = 2 * m * n_out * bitmap.shape[1] * keep
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-        rows.append((name, n_in, n_out, per_pass, k_ms, bound_ms, plain_ms,
-                     lib_ms))
-        for key, v in (("ms", k_ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+        chunk, splits = DM.plan(m, n_out, bitmap.shape[1])
+        rows.append((name, n_in, n_out, per_pass, k_ms, k_eager, bound_ms,
+                     plain_ms, lib_ms, lib_eager, splits, eye_s))
+        for key, v in (("ms", k_ms), ("eager_ms", k_eager),
+                       ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("library_eager_ms", lib_eager),
+                       ("bound_ms", bound_ms)):
             agg[key] += per_pass * v
         agg["bytes"] += per_pass * nbytes
         agg["ops"] += per_pass * ops
+        agg["launches"] += per_pass
         torch.cuda.empty_cache()
-    say("[kernel] draft_matmul, M=4, (in,out) per shape; us per launch "
-        "(mean over the model's layers, each launch on a cold weight):")
-    for name, n_in, n_out, per_pass, k_ms, b_ms, p_ms, l_ms in rows:
-        say(f"[kernel]   {name:12s} ({n_in},{n_out}) x{per_pass}/pass: "
-            f"kernel {k_ms * 1e3:.1f}  bound {b_ms * 1e3:.1f}  "
-            f"plain {p_ms * 1e3:.1f}  library {l_ms * 1e3:.1f}")
-    say(f"[kernel] one draft pass ({7 * cfg.n_layers + 1} launches): kernel "
-        f"{agg['ms']:.3f} ms, bound {agg['bound_ms']:.3f} ms "
-        f"({agg['bytes'] / 1e9:.3f} GB, bytes-bound), plain "
-        f"{agg['plain_ms']:.3f} ms, library {agg['library_ms']:.3f} ms; "
+    say(f"[{tag}] draft_matmul, M=4, (in,out) per shape; us per launch, each "
+        f"on a cold weight; kernel and library on the card's clock (graph "
+        f"replay), eager per call in parentheses:")
+    for (name, n_in, n_out, per_pass, k_ms, k_eg, b_ms, p_ms, l_ms, l_eg,
+         splits, eye_s) in rows:
+        say(f"[{tag}]   {name:12s} ({n_in},{n_out}) x{per_pass}/pass, "
+            f"{splits} split(s): kernel {k_ms * 1e3:.1f} ({k_eg * 1e3:.1f})  "
+            f"bound {b_ms * 1e3:.1f}  plain {p_ms * 1e3:.1f}  library "
+            f"{l_ms * 1e3:.1f} ({l_eg * 1e3:.1f})  kernel/library "
+            f"{k_ms / l_ms:.2f}; identity rows (M={n_in}) {eye_s:.2f} s")
+    say(f"[{tag}] one draft pass ({agg['launches']} launches): kernel "
+        f"{agg['ms']:.3f} ms (eager {agg['eager_ms']:.3f}), bound "
+        f"{agg['bound_ms']:.3f} ms ({agg['bytes'] / 1e9:.3f} GB, "
+        f"bytes-bound), plain {agg['plain_ms']:.3f} ms, library "
+        f"{agg['library_ms']:.3f} ms (eager {agg['library_eager_ms']:.3f}); "
         f"max |y - plain| = {max_err:.3g}")
     agg["max_abs_err"] = max_err
+    agg["rows"] = rows
     return agg
+
+
+def kernel_phase(packed, cfg, cass, gen) -> dict:
+    """Phase 4: ``draft_matmul`` per Llama-3-8B shape."""
+    return draft_shapes(_weights_by_shape(packed, cfg), cass, gen, "kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -566,9 +648,10 @@ def _paged_bound_ms(lengths, hkv, g, t, d, row_bytes: float) -> tuple:
         nbytes, ops
 
 
-def _library_ms(q, k_pool, v_pool, table, lengths, reps: int) -> float:
+def _library_ms(q, k_pool, v_pool, table, lengths, reps: int) -> tuple:
     """One ``scaled_dot_product_attention`` on the rows' gathered bf16 K/V
-    (heads repeated for GQA, a length mask): a yardstick only."""
+    (heads repeated for GQA, a length mask): a yardstick only. Returns
+    (graph-replay ms, eager ms)."""
     import torch
     from repro_torch.serving import kvcache as KC
     b, t, hkv, g, d = q.shape
@@ -580,7 +663,8 @@ def _library_ms(q, k_pool, v_pool, table, lengths, reps: int) -> float:
     mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
     f = torch.nn.functional.scaled_dot_product_attention
-    return cuda_ms(lambda: f(qh, kd, vd, attn_mask=mask), reps)
+    run = lambda: f(qh, kd, vd, attn_mask=mask)
+    return graph_ms(run, reps), cuda_ms(run, reps)
 
 
 def paged_phase(packed, cfg, cass, prompt, n_new: int, gen) -> dict:
@@ -684,7 +768,8 @@ def paged_phase(packed, cfg, cass, prompt, n_new: int, gen) -> dict:
                     lambda: PA.paged_gqa_packed_plain(
                         q, kspec, vspec, tbl, lens, cbook, scale=scale, **kw),
                     packed_row)}
-            lib_ms = _library_ms(q, *case["pools"], tbl, lens, 20)
+            lib_ms, lib_eager = _library_ms(q, *case["pools"], tbl, lens,
+                                            20)
             for name, (kern, plain, row_bytes) in runs.items():
                 got, want = kern(), plain()
                 merged = PA.merge_gqa_suffix(*got, q, suf_k, suf_v,
@@ -701,19 +786,21 @@ def paged_phase(packed, cfg, cass, prompt, n_new: int, gen) -> dict:
                              f"{(a - b_).abs().max().item()})")
                     err = max(err, (a - b_).abs().max().item())
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-                k_ms = cuda_ms(kern, 20)
+                k_ms, k_eager = graph_ms(kern, 20), cuda_ms(kern, 20)
                 p_ms = cuda_ms(plain, 1)
                 b_ms, by, nbytes, ops = _paged_bound_ms(
                     lens.tolist(), hkv, g, t, d, row_bytes)
                 out["rows"].append({"kernel": name, "case": case["name"],
-                                    "T": t, "ms": k_ms, "plain_ms": p_ms,
-                                    "bound_ms": b_ms, "bound_by": by,
-                                    "library_ms": lib_ms, "err": err,
-                                    "bytes": nbytes})
+                                    "T": t, "ms": k_ms, "eager_ms": k_eager,
+                                    "plain_ms": p_ms, "bound_ms": b_ms,
+                                    "bound_by": by, "library_ms": lib_ms,
+                                    "library_eager_ms": lib_eager,
+                                    "err": err, "bytes": nbytes})
                 say(f"[paged] {name:16s} {case['name']:16s} T={t:2d}: kernel "
-                    f"{k_ms * 1e3:.1f} us  bound {b_ms * 1e3:.2f} us ({by}, "
-                    f"{nbytes / 1e6:.2f} MB)  plain {p_ms * 1e3:.1f} us  "
-                    f"library {lib_ms * 1e3:.1f} us; max abs err {err:.3g}")
+                    f"{k_ms * 1e3:.1f} us ({k_eager * 1e3:.1f})  bound "
+                    f"{b_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB)  plain "
+                    f"{p_ms * 1e3:.1f} us  library {lib_ms * 1e3:.1f} us "
+                    f"({lib_eager * 1e3:.1f}); max abs err {err:.3g}")
         del case["pools"], case["spec"]
         torch.cuda.empty_cache()
     if escapes == 0:
@@ -1947,6 +2034,11 @@ def run(args) -> None:
     torch.cuda.empty_cache()
     # 11-13. DeepSeek-V3 MLA, its 3 dense layers at full width, C-1
     mla = mla_setup(args)
+    # draft_matmul per shape on the MLA model's own weights (ragged N, deep
+    # K), inputs from a generator of their own
+    draft_shapes(_mla_weights_by_shape(mla["packed"], mla["cfg"]),
+                 mla["cass"], torch.Generator(device="cuda").manual_seed(
+                     args.seed + 3), "mla-kernels")
     mla_k = mla_kernel_phase(mla, args.max_new)
     codec += mla_k["codec"]
     mla_e = mla_engine_phase(mla, args)

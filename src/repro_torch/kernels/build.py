@@ -25,6 +25,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SM_COUNT = 132                  # H100 SXM: the launch plans size grids by it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +104,9 @@ def entry(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
 
 def check(t, name: str, dtype, shape: tuple) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    if t.is_cuda and t.dtype == dtype and t.shape == shape \
+            and t.is_contiguous():
+        return                  # the common case, in one cheap expression
     if t.device.type != "cuda":
         raise ValueError(f"{name} is on {t.device}, not on the card")
     if t.dtype != dtype:
@@ -112,6 +116,36 @@ def check(t, name: str, dtype, shape: tuple) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+_tickets: dict = {}
+
+
+def tickets(device, n: int):
+    """int32 ticket counters on ``device`` for kernels whose last CTA of a
+    group finishes the group's work: zeros, each re-armed to 0 by the CTA
+    that takes it last, so one buffer serves every launch on the stream.
+    Grown to ``n`` entries, never inside a CUDA graph capture."""
+    import torch
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("run the shape once before capturing it in a "
+                               "CUDA graph (its ticket counters are "
+                               "allocated on first use)")
+        t = torch.zeros(max(4096, 1 << (n - 1).bit_length()),
+                        dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:         # skips building a Stream object per launch
+        return raw(t.get_device())
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def raise_on(err: int, what: str) -> None:

@@ -14,15 +14,16 @@
 // bit for bit against the plain version).
 //
 // Bound. A launch reads each row's `length` tokens of K and of V for every
-// kv head once: at D = 128, 512 B per token and head in bf16, or ~180 B
+// kv head once: at D = 128, 512 B per token and head in bf16, or ~90 B
 // packed (4 bitmap + 10 sign|mantissa + 8 exponent words and two bytes, at
 // the paper's 40% prune and 4-bit truncation). The work is 4*G*T*D flops
 // per token and head, far below the ~295 flop/byte where the card's tensor
 // cores become the limit, so both kernels are bound by those bytes (3.35
-// TB/s); at decode batch sizes the bytes are a few MB and a launch is bound
-// by its own overhead.
+// TB/s); at decode batch sizes the bytes are a few MB, and what a launch
+// costs is latency: how many blocks one CTA walks in order, and how long
+// one block's decode takes.
 //
-// Design (simple and right first):
+// The plain walk (`paged_gqa`, simple and right first):
 //   * The TPU grid (B, MB) carried the flash state across a sequential MB
 //     axis. Here one CTA owns (row b, kv head h, a tile of <= 16 of the G*T
 //     query rows) and walks the row's table entries 0.. itself, in order:
@@ -30,27 +31,54 @@
 //     Blocks past the row's length are skipped: an all-masked flash step is
 //     an exact no-op (corr = exp(0) = 1, p = 0).
 //   * Each K and V block of head h (BS <= 32 tokens x D bf16) is staged in
-//     shared memory once per CTA; the packed kernel decodes its BS K rows and
-//     BS V rows there, one warp per row. Masked V rows are zeroed there (a
-//     masked packed lane can decode to NaN), masked K rows are never read.
+//     shared memory once per CTA; masked V rows are zeroed there (a masked
+//     packed lane can decode to NaN), masked K rows are never read.
 //   * Each warp owns query rows; each lane holds D/32 dims of q and of acc.
 //     A score is a warp-shuffle reduction; lane s keeps key s's score, so the
 //     block max, p and the row sum are warp reductions too. The online
 //     softmax runs in f32 registers, in the reference's form: scores masked
 //     by select to -1e30, p = 0 by select, m from -1e30, l from 0, expf.
 //   * Table entries outside [0, NB) read block 0, the trash block.
-//   * The decode: a lane takes the dims it owns; a set bitmap bit's kept
-//     index is the __popc prefix of the bitmap; its sign|mantissa and 3-bit
-//     delta codes are read across word boundaries; a unary rank is the gap
-//     between the positions of the k-th and (k+1)-th set bits over the full
-//     word-padded exponent region (the strict-< rule of `_unary_ranks`),
-//     clipped to [0, 31] and mapped through the 32-entry book; the escape
-//     delta code decodes to exponent 0.
-// What this first version leaves out: the blocks are read with plain loads
-// as the walk reaches them (no cp.async/TMA stage ahead), every query tile
-// of a head re-reads (and, packed, re-decodes) the head's blocks, and the
-// products run on the CUDA cores. PERF.md records the measured times beside
-// the bound.
+//
+// The packed walk (`paged_gqa_packed`) is bound by latency: at the draft
+// pass's shapes one launch moves under 1 MB, so what it costs is how many
+// dependent steps one block takes (table, stage, decode, flash) and how many
+// blocks one CTA walks in order. Its design:
+//   * A table split across CTAs (flash decoding). The draft pass has only
+//     B*Hkv = 32 (row, kv head) pairs, and a 4096-token row holds 256
+//     blocks, so each pair's table is cut into chunks of `bps` blocks, one
+//     CTA each (`gqa_split_plan` in paged_attention.py picks `bps` so that
+//     the grid fills the card). Each CTA walks its chunk in order into a
+//     partial (acc, m, l); a second kernel, one thread per output element,
+//     merges the partials in split order with the usual rescale by
+//     exp(m_s - m), launched as a programmatic dependent so that its launch
+//     overlaps the walk's tail. No atomics: the same bits on every launch.
+//     An empty chunk leaves the initial state, which the merge leaves alone.
+//   * One decode per block, shared by all query rows. A block's K and V are
+//     decoded once per (row, kv head, split, tile of 16 query rows) into
+//     bf16 tiles in shared memory, which the flash step of every query row
+//     of the tile reads.
+//   * The decode runs on all threads in parallel: one thread per (token,
+//     32-dim word), so D = 128 and BS = 16 give the 128 words of a K and a V
+//     block to 128 threads. A thread's kept indices are a __popc prefix of
+//     the row's bitmap; four set bits at a time, their consecutive codes
+//     come from one 32-bit window of each code region. Unary ranks are gaps
+//     between successive set bits of the row's exponent region, a serial
+//     walk: instead, the row's threads first write the region's set-bit
+//     positions to shared memory (a __popc prefix places each thread's
+//     slice), so that every rank is two reads. Bit for bit the reference's
+//     `_decode_kv_rows`: the unary strict-< rule over the full word-padded
+//     region, ranks clipped to [0, 31] through the 32-entry book, the
+//     escape delta code read as exponent 0, kept indices clamped at
+//     keep - 1.
+//   * The flash step gives each key a lane that computes the whole dot q·k
+//     from the tile's q rows staged in shared memory, in place of a
+//     shuffle reduction per key.
+//   * Loads kept in flight: a two-slot shared-memory ring holds the packed
+//     words of a block's BS valid K and V rows of head h; `cp.async` fills
+//     the next block's slot while the current block decodes, and each
+//     thread loads its rows' mode and emax bytes while the slot lands.
+// The products stay on the CUDA cores (a few MFLOP per launch).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,6 +120,10 @@ struct Walk {
   float* l;
   int B, T, Hkv, G, D, NB, BS, MB;
   float scale;
+  int bps, splits;            // packed: blocks per split, splits
+  float* ws;                  // packed, splits > 1: partial (acc, m, l)
+  int rs, sm0, ew0;           // packed: staged row stride / region offsets
+  int g_bm, g_sm, g_ew;       // packed: cp.async granularity (words)
 };
 
 __device__ __forceinline__ float bf16_to_f32(uint16_t b) {
@@ -107,71 +139,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
-}
-
-// `width` (<= 8) bits at bit offset `off` of a little-endian word stream.
-__device__ __forceinline__ uint32_t bits_at(const uint32_t* w, int nwords,
-                                            int off, int width) {
-  const int wi = off >> 5;
-  uint64_t v = w[wi];
-  if (wi + 1 < nwords) v |= static_cast<uint64_t>(w[wi + 1]) << 32;
-  return static_cast<uint32_t>(v >> (off & 31)) & ((1u << width) - 1u);
-}
-
-// 0-indexed position of the n-th (n >= 1) set bit of the stream, or the
-// stream's bit count when it holds fewer than n.
-__device__ __forceinline__ int select_bit(const uint32_t* w, int nwords,
-                                          int n) {
-  for (int i = 0; i < nwords; ++i) {
-    uint32_t x = w[i];
-    const int c = __popc(x);
-    if (n <= c) {
-      for (int k = 1; k < n; ++k) x &= x - 1u;
-      return i * 32 + __ffs(x) - 1;
-    }
-    n -= c;
-  }
-  return nwords * 32;
-}
-
-// Decode one speculation row into D bf16 bit patterns (warp-cooperative:
-// lane takes dims lane, lane+32, ...). Bit for bit the reference's
-// `_decode_kv_rows`.
-__device__ void decode_row(const Spec& sp, size_t row, const Codec& c, int D,
-                           uint16_t* dst, int lane) {
-  const uint32_t* bm = sp.bitmap + row * (D >> 5);
-  const uint32_t* sm = sp.signmant + row * c.wsm;
-  const uint32_t* ew = sp.exp_words + row * c.we;
-  const int mode = sp.mode[row];
-  const int emax = sp.emax[row];
-  const int t_keep = 7 - c.trunc;
-  const int width = 1 + t_keep;
-  const int esc = (1 << c.exp_bits) - 1;
-  for (int dd = lane; dd < D; dd += 32) {
-    const int wi = dd >> 5, bi = dd & 31;
-    const uint32_t word = bm[wi];
-    uint32_t out = 0;
-    if ((word >> bi) & 1u) {
-      int rank = __popc(word & ((1u << bi) - 1u));
-      for (int i = 0; i < wi; ++i) rank += __popc(bm[i]);
-      const int k = min(rank, c.keep - 1);
-      const uint32_t code = bits_at(sm, c.wsm, k * width, width);
-      const uint32_t sign = (code >> t_keep) & 1u;
-      const uint32_t mant = (code & ((1u << t_keep) - 1u)) << c.trunc;
-      int e;
-      if (mode == 0) {
-        const int pos = select_bit(ew, c.we, k + 1);
-        const int prev = k > 0 ? select_bit(ew, c.we, k) : -1;
-        e = c.book[min(max(pos - prev - 1, 0), 31)];
-      } else {
-        const int dc = static_cast<int>(
-            bits_at(ew, c.we, k * c.exp_bits, c.exp_bits));
-        e = dc == esc ? 0 : min(max(emax - dc, 0), 255);
-      }
-      out = ((sign << 15) | (static_cast<uint32_t>(e) << 7) | mant) & 0xFFFFu;
-    }
-    dst[dd] = static_cast<uint16_t>(out);
-  }
 }
 
 template <int DPL>
@@ -191,34 +158,104 @@ __device__ __forceinline__ void load_dims(const uint16_t* p, float* out) {
   }
 }
 
-template <int DPL, bool PACKED>
+// One warp's query rows of a CTA: q and the flash state in registers.
+template <int DPL>
+struct Rows {
+  float q[kRowsPerWarp][DPL], acc[kRowsPerWarp][DPL];
+  float m[kRowsPerWarp], l[kRowsPerWarp];
+  int qrow[kRowsPerWarp];
+};
+
+template <int DPL>
+__device__ __forceinline__ void init_rows(const Walk& w, int b, int h,
+                                          int warp, int lane,
+                                          Rows<DPL>& st) {
+  constexpr int D = DPL * 32;
+  const int gt = w.G * w.T;
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = blockIdx.z * kQTile + warp + i * kWarps;
+    st.qrow[i] = r < gt ? r : -1;
+    st.m[i] = kNegInf;
+    st.l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) st.acc[i][c] = 0.f;
+    if (st.qrow[i] >= 0) {
+      const int g = r / w.T, t = r % w.T;
+      const size_t off =
+          ((((size_t)b * w.T + t) * w.Hkv + h) * w.G + g) * D + lane * DPL;
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) st.q[i][c] = bf16_to_f32(w.q[off + c]);
+    }
+  }
+}
+
+// One flash step over the staged tiles (nvalid tokens of K and V).
+template <int DPL>
+__device__ __forceinline__ void flash_block(const uint16_t* ks,
+                                            const uint16_t* vs, int nvalid,
+                                            float scale, int lane,
+                                            Rows<DPL>& st) {
+  constexpr int D = DPL * 32;
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    if (st.qrow[i] < 0) continue;                  // warp-uniform
+    float sc = kNegInf;                            // lane s: key s
+    for (int s = 0; s < nvalid; ++s) {
+      float kd[DPL];
+      load_dims<DPL>(ks + s * D + lane * DPL, kd);
+      float part = 0.f;
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) part += st.q[i][c] * kd[c];
+      part = warp_sum(part);
+      if (lane == s) sc = part * scale;
+    }
+    const float m_new = fmaxf(st.m[i], warp_max(sc));
+    const float p = lane < nvalid ? expf(sc - m_new) : 0.f;
+    const float corr = expf(st.m[i] - m_new);
+    st.l[i] = st.l[i] * corr + warp_sum(p);
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) st.acc[i][c] *= corr;
+    for (int s = 0; s < nvalid; ++s) {
+      const float ps = __shfl_sync(kFull, p, s);
+      float vd[DPL];
+      load_dims<DPL>(vs + s * D + lane * DPL, vd);
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) st.acc[i][c] += ps * vd[c];
+    }
+    st.m[i] = m_new;
+  }
+}
+
+template <int DPL>
+__device__ __forceinline__ void store_rows(const Walk& w, float* acc,
+                                           float* m, float* l, int b, int h,
+                                           int lane, const Rows<DPL>& st) {
+  constexpr int D = DPL * 32;
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    if (st.qrow[i] < 0) continue;
+    const int g = st.qrow[i] / w.T, t = st.qrow[i] % w.T;
+    const size_t o = (((size_t)b * w.Hkv + h) * w.G + g) * w.T + t;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) acc[o * D + lane * DPL + c] = st.acc[i][c];
+    if (lane == 0) {
+      m[o] = st.m[i];
+      l[o] = st.l[i];
+    }
+  }
+}
+
+template <int DPL>
 __global__ void __launch_bounds__(kThreads) paged_gqa_kernel(Walk w) {
   constexpr int D = DPL * 32;
   __shared__ __align__(16) uint16_t ks[kMaxBS * kMaxD];
   __shared__ __align__(16) uint16_t vs[kMaxBS * kMaxD];
   const int b = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gt = w.G * w.T;
 
-  float q[kRowsPerWarp][DPL], acc[kRowsPerWarp][DPL];
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-  int qrow[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = blockIdx.z * kQTile + warp + i * kWarps;
-    qrow[i] = r < gt ? r : -1;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[i][c] = 0.f;
-    if (qrow[i] >= 0) {
-      const int g = r / w.T, t = r % w.T;
-      const size_t off =
-          ((((size_t)b * w.T + t) * w.Hkv + h) * w.G + g) * D + lane * DPL;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) q[i][c] = bf16_to_f32(w.q[off + c]);
-    }
-  }
+  Rows<DPL> st;
+  init_rows<DPL>(w, b, h, warp, lane, st);
 
   const int len = w.length[b];
   const int n_blocks = len > 0 ? min(w.MB, (len + w.BS - 1) / w.BS) : 0;
@@ -227,98 +264,473 @@ __global__ void __launch_bounds__(kThreads) paged_gqa_kernel(Walk w) {
     if (blk < 0 || blk >= w.NB) blk = 0;                   // trash block
     const int nvalid = min(w.BS, len - j * w.BS);
     __syncthreads();                    // the previous block's tiles are used
-    if constexpr (PACKED) {
-      for (int rr = warp; rr < 2 * w.BS; rr += kWarps) {
-        const bool is_v = rr >= w.BS;
-        const int s = is_v ? rr - w.BS : rr;
-        uint16_t* dst = (is_v ? vs : ks) + s * D;
-        if (s < nvalid) {
-          const size_t row = ((size_t)blk * w.BS + s) * w.Hkv + h;
-          decode_row(is_v ? w.v_spec : w.k_spec, row, w.codec, D, dst, lane);
-        } else {
-          for (int dd = lane; dd < D; dd += 32) dst[dd] = 0;
-        }
+    constexpr int kChunks = D / 8;                      // 16 B per chunk
+    for (int idx = threadIdx.x; idx < 2 * w.BS * kChunks; idx += kThreads) {
+      const bool is_v = idx >= w.BS * kChunks;
+      const int rel = is_v ? idx - w.BS * kChunks : idx;
+      const int s = rel / kChunks, c8 = rel % kChunks;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (s < nvalid) {
+        const uint16_t* src = (is_v ? w.v_pool : w.k_pool) +
+            (((size_t)blk * w.BS + s) * w.Hkv + h) * D + c8 * 8;
+        v = *reinterpret_cast<const uint4*>(src);
       }
-    } else {
-      constexpr int kChunks = D / 8;                    // 16 B per chunk
-      for (int idx = threadIdx.x; idx < 2 * w.BS * kChunks; idx += kThreads) {
-        const bool is_v = idx >= w.BS * kChunks;
-        const int rel = is_v ? idx - w.BS * kChunks : idx;
-        const int s = rel / kChunks, c8 = rel % kChunks;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (s < nvalid) {
-          const uint16_t* src = (is_v ? w.v_pool : w.k_pool) +
-              (((size_t)blk * w.BS + s) * w.Hkv + h) * D + c8 * 8;
-          v = *reinterpret_cast<const uint4*>(src);
-        }
-        *reinterpret_cast<uint4*>((is_v ? vs : ks) + s * D + c8 * 8) = v;
-      }
+      *reinterpret_cast<uint4*>((is_v ? vs : ks) + s * D + c8 * 8) = v;
     }
     __syncthreads();
+    flash_block<DPL>(ks, vs, nvalid, w.scale, lane, st);
+  }
+  store_rows<DPL>(w, w.acc, w.m, w.l, b, h, lane, st);
+}
 
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      if (qrow[i] < 0) continue;                     // warp-uniform
-      float sc = kNegInf;                            // lane s: key s
-      for (int s = 0; s < nvalid; ++s) {
-        float kd[DPL];
-        load_dims<DPL>(ks + s * D + lane * DPL, kd);
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) part += q[i][c] * kd[c];
-        part = warp_sum(part);
-        if (lane == s) sc = part * w.scale;
-      }
-      const float m_new = fmaxf(m[i], warp_max(sc));
-      const float p = lane < nvalid ? expf(sc - m_new) : 0.f;
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + warp_sum(p);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[i][c] *= corr;
-      for (int s = 0; s < nvalid; ++s) {
-        const float ps = __shfl_sync(kFull, p, s);
-        float vd[DPL];
-        load_dims<DPL>(vs + s * D + lane * DPL, vd);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[i][c] += ps * vd[c];
-      }
-      m[i] = m_new;
+// ---------------------------------------------------------------------------
+// The packed walk: decode, staging, split and merge
+// ---------------------------------------------------------------------------
+
+// `mask` bits at bit offset `off` of a little-endian word stream of
+// `nwords` words (reads past the stream as zeros).
+__device__ __forceinline__ uint32_t bits_at(const uint32_t* w, int nwords,
+                                            int off, uint32_t mask) {
+  const int wi = off >> 5;
+  const uint32_t hi = wi + 1 < nwords ? w[wi + 1] : 0u;
+  return __funnelshift_r(w[wi], hi, off) & mask;
+}
+
+// Unary exponent regions, phase 1: the positions of the first `keep` set
+// bits of a row's region (pos_j, the position of the (j+1)-th set bit) go
+// to `pos`, and the region's set-bit count to `*total`. The row's `dw`
+// threads (consecutive lanes, dims word wi each) take consecutive slices
+// of the region's words and place their bits after a __popc prefix over
+// the slices. Every lane of the warp calls it (the prefix shuffles);
+// `active` says whether this lane's row is a unary row to decode.
+__device__ __forceinline__ void unary_positions(const uint32_t* ew, int we,
+                                                int keep, int wi, int dw,
+                                                bool active, int16_t* pos,
+                                                int* total) {
+  const int ch = (we + dw - 1) / dw;
+  const int j0 = min(we, wi * ch), j1 = min(we, j0 + ch);
+  int cnt = 0;
+  if (active)
+    for (int j = j0; j < j1; ++j) cnt += __popc(ew[j]);
+  int incl = cnt;
+  for (int d = 1; d < dw; d <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, d, dw);
+    if (wi >= d) incl += t;
+  }
+  const int tot = __shfl_sync(kFull, incl, dw - 1, dw);
+  if (!active) return;
+  int k = incl - cnt;
+  for (int j = j0; j < j1 && k < keep; ++j) {
+    uint32_t word = ew[j];
+    while (word != 0u && k < keep) {
+      pos[k++] = static_cast<int16_t>(j * 32 + __ffs(word) - 1);
+      word &= word - 1u;
     }
   }
+  if (wi == 0) *total = tot;
+}
 
+// Phase 2: dims 32*wi .. 32*wi+31 of one speculation row into `dst` (bf16
+// bit patterns; bitmap bm, codes sm, exponent words ew; a unary row's
+// positions from phase 1). Bit for bit the reference's `_decode_kv_rows`:
+// kept indices clamped at keep - 1, unary ranks pos_k - pos_{k-1} - 1
+// (pos_{-1} = -1, the region's bit count past its last set bit) clipped to
+// [0, 31] through the book, the delta escape read as exponent 0.
+__device__ __forceinline__ void decode_word(
+    const uint32_t* bm, const uint32_t* sm, const uint32_t* ew, int wi,
+    int mode, int emax, const Codec& c, const uint8_t* book,
+    const int16_t* pos, int total, uint16_t* dst) {
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d4[i] = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t bits = bm[wi];
+  if (bits == 0u) return;
+  int base = 0;
+  for (int i = 0; i < wi; ++i) base += __popc(bm[i]);
+  const int tk = 7 - c.trunc, width = 8 - c.trunc;
+  const uint32_t cmask = (1u << width) - 1u, mmask = (1u << tk) - 1u;
+  const uint32_t emask = (1u << c.exp_bits) - 1u;
+  const int esc = static_cast<int>(emask);
+  const int nbits = c.we * 32;
+  // four set bits a step: their kept indices are consecutive from kb (or
+  // clamped to keep - 1), so one 32-bit window of each code region holds
+  // their codes (widths <= 8) and five positions their unary ranks
+  int r = 0;
+  while (bits != 0u) {
+    int p[4];
+    bool ok[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ok[u] = bits != 0u;
+      p[u] = __ffs(bits) - 1;
+      bits &= bits - 1u;
+    }
+    const int kb = min(base + r, c.keep - 1);
+    const uint32_t swin = bits_at(sm, c.wsm, kb * width, 0xFFFFFFFFu);
+    uint32_t ewin = 0u;
+    int pv[5];
+    if (mode != 0) {
+      ewin = bits_at(ew, c.we, kb * c.exp_bits, 0xFFFFFFFFu);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        const int kk = kb - 1 + j;
+        pv[j] = kk < 0 ? -1 : kk < total && kk < c.keep ? pos[kk] : nbits;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int d = min(base + r + u, c.keep - 1) - kb;      // 0..3
+      const uint32_t code = (swin >> (d * width)) & cmask;
+      uint32_t e;
+      if (mode != 0) {
+        const int dc = static_cast<int>((ewin >> (d * c.exp_bits)) & emask);
+        e = dc == esc ? 0u
+                      : static_cast<uint32_t>(min(max(emax - dc, 0), 255));
+      } else {                                  // pos_k - pos_{k-1} - 1
+        const int p0 = d == 0 ? pv[0] : d == 1 ? pv[1] : d == 2 ? pv[2] : pv[3];
+        const int p1 = d == 0 ? pv[1] : d == 1 ? pv[2] : d == 2 ? pv[3] : pv[4];
+        e = book[min(max(p1 - p0 - 1, 0), 31)];
+      }
+      if (ok[u])
+        dst[p[u]] = static_cast<uint16_t>(((code >> tk) & 1u) << 15 |
+                                          e << 7 |
+                                          ((code & mmask) << c.trunc));
+    }
+    r += 4;
+  }
+}
+
+__device__ __forceinline__ void cp_async(uint32_t* dst, const uint32_t* src,
+                                         int words) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (words == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+                 "l"(src));
+  else if (words == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void copy_region(uint32_t* dst,
+                                            const uint32_t* src, int n,
+                                            int g, int sub) {
+  for (int i = sub * g; i < n; i += 4 * g) cp_async(dst + i, src + i, g);
+}
+
+// The packed words of block `blk`'s valid K and V rows of head h into a
+// ring slot: row r < BS is K token r, row BS + r V token r. 4 threads a
+// row.
+__device__ __forceinline__ void stage_block(const Walk& w, uint32_t* slot,
+                                            int blk, int h, int nvalid,
+                                            int dw) {
+  const int sub = threadIdx.x & 3;
+  for (int r = threadIdx.x >> 2; r < 2 * w.BS; r += kThreads / 4) {
+    const bool is_v = r >= w.BS;
+    const int s = is_v ? r - w.BS : r;
+    if (s >= nvalid) continue;
+    const Spec& sp = is_v ? w.v_spec : w.k_spec;
+    const size_t row = ((size_t)blk * w.BS + s) * w.Hkv + h;
+    uint32_t* dst = slot + r * w.rs;
+    copy_region(dst, sp.bitmap + row * dw, dw, w.g_bm, sub);
+    copy_region(dst + w.sm0, sp.signmant + row * w.codec.wsm, w.codec.wsm,
+                w.g_sm, sub);
+    copy_region(dst + w.ew0, sp.exp_words + row * w.codec.we, w.codec.we,
+                w.g_ew, sub);
+  }
+  asm volatile("cp.async.commit_group;" ::);
+}
+
+// The packed kernel's flash step. One lane per key computes the whole dot
+// q·k from the q rows staged in shared memory (f32) and the K tile (rows
+// padded to kKStride, so the lanes' 16-byte reads fall on distinct banks):
+// no shuffle chain per key. The V accumulation is the plain walk's.
+constexpr int kKStride = kMaxD + 8;
+
+template <int DPL>
+__device__ __forceinline__ void flash_block_keys(const uint16_t* ks,
+                                                 const uint16_t* vs,
+                                                 const float* qs, int nvalid,
+                                                 float scale, int warp,
+                                                 int lane, Rows<DPL>& st) {
+  constexpr int D = DPL * 32;
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
-    if (qrow[i] < 0) continue;
-    const int g = qrow[i] / w.T, t = qrow[i] % w.T;
-    const size_t st = (((size_t)b * w.Hkv + h) * w.G + g) * w.T + t;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) w.acc[st * D + lane * DPL + c] = acc[i][c];
-    if (lane == 0) {
-      w.m[st] = m[i];
-      w.l[st] = l[i];
+    if (st.qrow[i] < 0) continue;                  // warp-uniform
+    float sc = kNegInf;                            // lane s: key s
+    if (lane < nvalid) {
+      const uint16_t* kr = ks + lane * kKStride;
+      const float* qr = qs + (warp + i * kWarps) * D;
+      float dot = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < D; c += 8) {
+        const uint4 k8 = *reinterpret_cast<const uint4*>(kr + c);
+        const float4 qa = *reinterpret_cast<const float4*>(qr + c);
+        const float4 qb = *reinterpret_cast<const float4*>(qr + c + 4);
+        dot += qa.x * __uint_as_float(k8.x << 16);
+        dot += qa.y * __uint_as_float(k8.x & 0xFFFF0000u);
+        dot += qa.z * __uint_as_float(k8.y << 16);
+        dot += qa.w * __uint_as_float(k8.y & 0xFFFF0000u);
+        dot += qb.x * __uint_as_float(k8.z << 16);
+        dot += qb.y * __uint_as_float(k8.z & 0xFFFF0000u);
+        dot += qb.z * __uint_as_float(k8.w << 16);
+        dot += qb.w * __uint_as_float(k8.w & 0xFFFF0000u);
+      }
+      sc = dot * scale;
     }
+    const float m_new = fmaxf(st.m[i], warp_max(sc));
+    const float p = lane < nvalid ? expf(sc - m_new) : 0.f;
+    const float corr = expf(st.m[i] - m_new);
+    st.l[i] = st.l[i] * corr + warp_sum(p);
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) st.acc[i][c] *= corr;
+#pragma unroll 4
+    for (int s = 0; s < nvalid; ++s) {
+      const float ps = __shfl_sync(kFull, p, s);
+      float vd[DPL];
+      load_dims<DPL>(vs + s * D + lane * DPL, vd);
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) st.acc[i][c] += ps * vd[c];
+    }
+    st.m[i] = m_new;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-decode_rows_kernel(Spec sp, Codec c, uint16_t* out, int rows, int D) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  decode_row(sp, row, c, D, out + (size_t)row * D, threadIdx.x & 31);
+// grid (B*Hkv, splits, query tiles): chunk `split` of row b's table, kv
+// head h, into (acc, m, l), or into partial state slice `split` of the
+// workspace when the table is split.
+template <int DPL>
+__global__ void __launch_bounds__(kThreads) paged_gqa_packed_kernel(Walk w) {
+  constexpr int D = DPL * 32;
+  constexpr int kTasks = (2 * kMaxBS * DPL + kThreads - 1) / kThreads;
+  __shared__ __align__(16) uint16_t ks[kMaxBS * kKStride];
+  __shared__ __align__(16) uint16_t vs[kMaxBS * kMaxD];
+  __shared__ __align__(16) float qs[kQTile * kMaxD];
+  __shared__ uint8_t book[32];
+  __shared__ int utot[2 * kMaxBS];
+  extern __shared__ __align__(16) uint32_t ring[];
+  int16_t* upos = reinterpret_cast<int16_t*>(ring + 2 * 2 * w.BS * w.rs);
+  const int b = blockIdx.x / w.Hkv, h = blockIdx.x % w.Hkv;
+  const int split = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = split * w.bps;
+  const int32_t* trow = w.table + (size_t)b * w.MB;
+  // the row's length and first table entry, loaded together
+  const int len = w.length[b];
+  const int first = j0 < w.MB ? trow[j0] : 0;
+  if (threadIdx.x < 32) book[threadIdx.x] = w.codec.book[threadIdx.x];
+
+  Rows<DPL> st;
+  init_rows<DPL>(w, b, h, warp, lane, st);
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+    if (st.qrow[i] >= 0)
+#pragma unroll
+      for (int c = 0; c < DPL; ++c)
+        qs[(warp + i * kWarps) * D + lane * DPL + c] = st.q[i][c];
+
+  const int n_blocks = len > 0 ? min(w.MB, (len + w.BS - 1) / w.BS) : 0;
+  const int j1 = min(n_blocks, j0 + w.bps);
+  const int slot_words = 2 * w.BS * w.rs;
+  auto sanitize = [&](int blk) {
+    return blk < 0 || blk >= w.NB ? 0 : blk;               // trash block
+  };
+  if (j0 < j1)
+    stage_block(w, ring, sanitize(first), h, min(w.BS, len - j0 * w.BS),
+                DPL);
+  for (int j = j0; j < j1; ++j) {
+    const int i = j - j0;
+    const int blk = sanitize(j == j0 ? first : trow[j]);
+    const int nvalid = min(w.BS, len - j * w.BS);
+    if (j + 1 < j1)
+      stage_block(w, ring + ((i + 1) & 1) * slot_words,
+                  sanitize(trow[j + 1]), h, min(w.BS, len - (j + 1) * w.BS),
+                  DPL);
+    // this block's rows' mode and emax, loaded while the slot lands
+    int mode[kTasks], emax[kTasks];
+#pragma unroll
+    for (int q = 0; q < kTasks; ++q) {
+      const int r = (threadIdx.x + q * kThreads) / DPL;
+      const bool is_v = r >= w.BS;
+      const int s = is_v ? r - w.BS : r;
+      mode[q] = emax[q] = 0;
+      if (r < 2 * w.BS && s < nvalid) {
+        const Spec& sp = is_v ? w.v_spec : w.k_spec;
+        const size_t row = ((size_t)blk * w.BS + s) * w.Hkv + h;
+        mode[q] = sp.mode[row];
+        emax[q] = sp.emax[row];
+      }
+    }
+    if (j + 1 < j1)
+      asm volatile("cp.async.wait_group 1;" ::);
+    else
+      asm volatile("cp.async.wait_group 0;" ::);
+    // the slot has landed, and every thread is past the previous flash
+    // step (the tiles are free) and decode (the other slot is free)
+    __syncthreads();
+    const uint32_t* slot = ring + (i & 1) * slot_words;
+    // unary rows: their exponent regions' set-bit positions
+#pragma unroll
+    for (int q = 0; q < kTasks; ++q) {
+      const int task = threadIdx.x + q * kThreads;
+      const int r = min(task / DPL, 2 * w.BS - 1), wi = task % DPL;
+      const int s = r >= w.BS ? r - w.BS : r;
+      unary_positions(slot + r * w.rs + w.ew0, w.codec.we, w.codec.keep, wi,
+                      DPL, task < 2 * w.BS * DPL && s < nvalid && mode[q] == 0,
+                      upos + r * w.codec.keep, utot + r);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kTasks; ++q) {
+      const int task = threadIdx.x + q * kThreads;
+      if (task >= 2 * w.BS * DPL) break;
+      const int r = task / DPL, wi = task % DPL;
+      const bool is_v = r >= w.BS;
+      const int s = is_v ? r - w.BS : r;
+      uint16_t* dst = is_v ? vs + s * D + 32 * wi : ks + s * kKStride + 32 * wi;
+      if (s >= nvalid) {
+        uint4* d4 = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+        for (int z = 0; z < 4; ++z) d4[z] = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+      const uint32_t* src = slot + r * w.rs;
+      decode_word(src, src + w.sm0, src + w.ew0, wi, mode[q], emax[q],
+                  w.codec, book, upos + r * w.codec.keep, utot[r], dst);
+    }
+    __syncthreads();
+    flash_block_keys<DPL>(ks, vs, qs, nvalid, w.scale, warp, lane, st);
+  }
+  if (w.splits == 1) {
+    store_rows<DPL>(w, w.acc, w.m, w.l, b, h, lane, st);
+    return;
+  }
+  const size_t slab = (size_t)w.B * w.Hkv * w.G * w.T;
+  float* pm = w.ws + w.splits * slab * D;
+  store_rows<DPL>(w, w.ws + split * slab * D, pm + split * slab,
+                  pm + (w.splits + split) * slab, b, h, lane, st);
+  asm volatile("griddepcontrol.launch_dependents;");    // the merge may start
 }
 
-template <bool PACKED>
-cudaError_t launch_walk(const Walk& w, cudaStream_t stream) {
+// Merge the partial states of `splits` table chunks, one thread per output
+// element, in chunk order: m = max m_s, l = sum l_s exp(m_s - m), acc =
+// sum acc_s exp(m_s - m). ws: acc (splits, rows, D), then m and l (splits,
+// rows).
+__global__ void merge_splits_kernel(const float* __restrict__ ws,
+                                    float* __restrict__ acc,
+                                    float* __restrict__ m,
+                                    float* __restrict__ l, int splits,
+                                    int rows, int D) {
+  // launched as a programmatic dependent of the walk: wait for its
+  // partial states
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) +
+                     threadIdx.x;
+  if (idx >= static_cast<size_t>(rows) * D) return;
+  const int row = static_cast<int>(idx / D);
+  const bool lead = idx % D == 0;
+  const float* pm = ws + static_cast<size_t>(splits) * rows * D;
+  const float* pl = pm + static_cast<size_t>(splits) * rows;
+  // splits in batches of 8: each batch's loads are issued together
+  float mx = kNegInf;
+  for (int s0 = 0; s0 < splits; s0 += 8) {
+    float mv[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      mv[u] = s0 + u < splits ? pm[(size_t)(s0 + u) * rows + row] : kNegInf;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) mx = fmaxf(mx, mv[u]);
+  }
+  float a = 0.f, ls = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += 8) {
+    float mv[8], av[8], lv[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const bool in = s0 + u < splits;
+      mv[u] = in ? pm[(size_t)(s0 + u) * rows + row] : kNegInf;
+      av[u] = in ? ws[(size_t)(s0 + u) * rows * D + idx] : 0.f;
+      lv[u] = in && lead ? pl[(size_t)(s0 + u) * rows + row] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (s0 + u >= splits) break;
+      const float c = expf(mv[u] - mx);
+      a += av[u] * c;
+      ls += lv[u] * c;
+    }
+  }
+  acc[idx] = a;
+  if (lead) {
+    m[row] = mx;
+    l[row] = ls;
+  }
+}
+
+// One thread per (row, 32-dim word) of a whole pool, the packed kernel's
+// two-phase decode (unary positions in shared memory, then the values).
+__global__ void __launch_bounds__(kThreads)
+decode_rows_kernel(Spec sp, Codec c, uint16_t* out, int rows, int dw) {
+  __shared__ int utot[kThreads];
+  extern __shared__ __align__(16) uint32_t dyn[];      // (kThreads/dw, keep)
+  int16_t* upos = reinterpret_cast<int16_t*>(dyn);
+  const size_t task = blockIdx.x * static_cast<size_t>(kThreads) +
+                      threadIdx.x;
+  const int lr = threadIdx.x / dw, wi = static_cast<int>(task % dw);
+  const bool live = task < static_cast<size_t>(rows) * dw;
+  const size_t row = live ? task / dw : static_cast<size_t>(rows) - 1;
+  const int mode = sp.mode[row];
+  unary_positions(sp.exp_words + row * c.we, c.we, c.keep, wi, dw,
+                  live && mode == 0, upos + lr * c.keep, utot + lr);
+  __syncthreads();
+  if (!live) return;
+  decode_word(sp.bitmap + row * dw, sp.signmant + row * c.wsm,
+              sp.exp_words + row * c.we, wi, mode, sp.emax[row], c, c.book,
+              upos + lr * c.keep, utot[lr], out + row * dw * 32 + 32 * wi);
+}
+
+cudaError_t launch_plain(const Walk& w, cudaStream_t stream) {
   if (w.BS < 1 || w.BS > kMaxBS) return cudaErrorInvalidValue;
   const dim3 grid(w.B, w.Hkv, (w.G * w.T + kQTile - 1) / kQTile);
   if (grid.x == 0 || grid.z == 0) return cudaSuccess;
   switch (w.D) {
-    case 32: paged_gqa_kernel<1, PACKED><<<grid, kThreads, 0, stream>>>(w); break;
-    case 64: paged_gqa_kernel<2, PACKED><<<grid, kThreads, 0, stream>>>(w); break;
-    case 128: paged_gqa_kernel<4, PACKED><<<grid, kThreads, 0, stream>>>(w); break;
+    case 32: paged_gqa_kernel<1><<<grid, kThreads, 0, stream>>>(w); break;
+    case 64: paged_gqa_kernel<2><<<grid, kThreads, 0, stream>>>(w); break;
+    case 128: paged_gqa_kernel<4><<<grid, kThreads, 0, stream>>>(w); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <int DPL>
+cudaError_t launch_packed_d(const Walk& w, dim3 grid, size_t ring_bytes,
+                            cudaStream_t stream) {
+  static size_t granted = 0;
+  const size_t total = ring_bytes + sizeof(uint16_t) * kMaxBS *
+      (kKStride + kMaxD) + sizeof(float) * kQTile * kMaxD + 32;
+  if (total > 48 * 1024 && ring_bytes > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_gqa_packed_kernel<DPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(ring_bytes));
+    if (e != cudaSuccess) return e;
+    granted = ring_bytes;
+  }
+  paged_gqa_packed_kernel<DPL><<<grid, kThreads, ring_bytes, stream>>>(w);
+  return cudaGetLastError();
+}
+
+inline int round4(int x) { return (x + 3) & ~3; }
+
+inline int imin(int a, int b) { return a < b ? a : b; }
+
+int granule(const void* p, int n) {
+  const uintptr_t u = reinterpret_cast<uintptr_t>(p);
+  if (n % 4 == 0 && u % 16 == 0) return 4;
+  if (n % 2 == 0 && u % 8 == 0) return 2;
+  return 1;
 }
 
 Walk make_walk(const void* q, const void* table, const void* length, void* acc,
@@ -358,25 +770,68 @@ extern "C" int paged_gqa_launch(const void* q, const void* k_pool,
                      scale);
   w.k_pool = static_cast<const uint16_t*>(k_pool);
   w.v_pool = static_cast<const uint16_t*>(v_pool);
-  return static_cast<int>(
-      launch_walk<false>(w, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_plain(w, static_cast<cudaStream_t>(stream)));
 }
 
+// `bps` table blocks per CTA; with more than one split, the partial states
+// go to `ws` (acc (splits, B, Hkv, G, T, D), then m and l (splits, B, Hkv,
+// G, T)) and a second kernel merges them into (acc, m, l).
 extern "C" int paged_gqa_packed_launch(
     const void* q, const void* kbm, const void* ksm, const void* kew,
     const void* kmo, const void* kem, const void* vbm, const void* vsm,
     const void* vew, const void* vmo, const void* vem, const void* book,
     const void* table, const void* length, void* acc, void* m, void* l,
-    int B, int T, int Hkv, int G, int D, int NB, int BS, int MB, int keep,
-    int trunc, int exp_bits, int wsm, int we, float scale, void* stream) {
-  Walk w = make_walk(q, table, length, acc, m, l, B, T, Hkv, G, D, NB, BS, MB,
-                     scale);
+    void* ws, int B, int T, int Hkv, int G, int D, int NB, int BS, int MB,
+    int keep, int trunc, int exp_bits, int wsm, int we, int bps,
+    float scale, void* stream) {
+  if (BS < 1 || BS > kMaxBS || bps < 1 || (D != 32 && D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Walk w = make_walk(q, table, length, acc, m, l, B, T, Hkv, G, D, NB, BS,
+                     MB, scale);
+  w.splits = MB > 0 ? (MB + bps - 1) / bps : 1;
+  if (w.splits > 1 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  w.ws = static_cast<float*>(ws);
   w.k_spec = make_spec(kbm, ksm, kew, kmo, kem);
   w.v_spec = make_spec(vbm, vsm, vew, vmo, vem);
   w.codec = Codec{static_cast<const uint8_t*>(book), keep, trunc, exp_bits,
                   wsm, we};
-  return static_cast<int>(
-      launch_walk<true>(w, static_cast<cudaStream_t>(stream)));
+  const int dw = D / 32;
+  w.bps = bps;
+  w.sm0 = round4(dw);
+  w.ew0 = w.sm0 + round4(wsm + 1);
+  w.rs = w.ew0 + round4(we + 1);
+  w.g_bm = imin(granule(kbm, dw), granule(vbm, dw));
+  w.g_sm = imin(granule(ksm, wsm), granule(vsm, wsm));
+  w.g_ew = imin(granule(kew, we), granule(vew, we));
+  const int rows = B * Hkv * G * T;
+  if (rows == 0) return 0;
+  const dim3 grid(B * Hkv, w.splits, (G * T + kQTile - 1) / kQTile);
+  // the ring's two slots, then the unary positions of one block's rows
+  const size_t ring_bytes = static_cast<size_t>(2) * 2 * BS * w.rs * 4 +
+                            static_cast<size_t>(2) * BS * keep * 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (D) {
+    case 32: e = launch_packed_d<1>(w, grid, ring_bytes, s); break;
+    case 64: e = launch_packed_d<2>(w, grid, ring_bytes, s); break;
+    default: e = launch_packed_d<4>(w, grid, ring_bytes, s); break;
+  }
+  if (e != cudaSuccess || w.splits == 1) return static_cast<int>(e);
+  const size_t n = static_cast<size_t>(rows) * D;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>((n + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = s;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, merge_splits_kernel, static_cast<const float*>(ws),
+      static_cast<float*>(acc), static_cast<float*>(m),
+      static_cast<float*>(l), w.splits, rows, D));
 }
 
 extern "C" int decode_spec_rows_launch(const void* bitmap,
@@ -392,8 +847,11 @@ extern "C" int decode_spec_rows_launch(const void* bitmap,
   const Spec sp = make_spec(bitmap, signmant, exp_words, mode, emax);
   const Codec c{static_cast<const uint8_t*>(book), keep, trunc, exp_bits, wsm,
                 we};
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  decode_rows_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sp, c, static_cast<uint16_t*>(out), rows, D);
+  const size_t tasks = static_cast<size_t>(rows) * (D / 32);
+  const size_t pos_bytes =
+      static_cast<size_t>(kThreads / (D / 32)) * keep * sizeof(int16_t);
+  decode_rows_kernel<<<static_cast<unsigned>((tasks + kThreads - 1) / kThreads),
+                       kThreads, pos_bytes, static_cast<cudaStream_t>(stream)>>>(
+      sp, c, static_cast<uint16_t*>(out), rows, D / 32);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,18 +8,24 @@ draft weight is rebuilt on chip from the packed speculation stream: a
 bitmap, sign|mantissa codes, a fixed 3-bit exponent-*rank* code per kept
 value (rank 7 escapes to the block's max exponent — the "Cassandra-1T"
 variant, which differs from the exact C-1 draft on under 2% of values) and
-an 8-entry book. Its bound is the packed bytes streamed; the source note
-says how the design meets it.
+an 8-entry book. Its floor is the packed bytes streamed, its limit the
+decode's instructions; the source note says how the design meets both.
 
 * ``prepare_draft_operands`` / ``prepare_params`` — the rank codes are
   prepared once, at load time, and kept beside each spec.
 * ``draft_matmul_plain`` — the same math in PyTorch (the reference's
   ``draft_matmul_rank3_oracle``): the CPU path and the kernel's oracle.
+* ``plan`` / ``plan_ranges`` — how a launch cuts the product: 32 output
+  columns per CTA (8 or 32 rows of x) and a range of superblocks (split-K),
+  so that every shape puts a few hundred CTAs on the card.
 * ``draft_matmul`` — the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches the kernel or raises. ``draft_matmul.launches``
-  counts kernel launches.
+  counts wrapper calls (one kernel each; with a K split, the last CTA of a
+  column tile sums the split partials).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -142,33 +148,87 @@ def draft_matmul_plain(x, bitmap, signmant, exp3, emax, book, *, block: int,
 
 
 # ---------------------------------------------------------------------------
+# Launch plan (mirrors the kernel's grid)
+# ---------------------------------------------------------------------------
+
+TILE_COLS = 32                  # output columns per CTA
+TARGET_CTAS = 4 * build.SM_COUNT    # enough CTAs to hide a stage's latency
+
+
+def tile_rows(m: int) -> int:
+    """Rows of x per CTA: one n = 8 mma tile at decode sizes, four above."""
+    return 8 if m <= 8 else 32
+
+
+def plan(m: int, n: int, nb: int) -> tuple[int, int]:
+    """(superblocks per CTA, K splits) for x (m, nb·block) @ W (·, n).
+
+    Column tiles x row tiles x splits reach ``TARGET_CTAS`` where the
+    superblocks allow. Every split holds at least one superblock."""
+    tiles = -(-n // TILE_COLS) * -(-m // tile_rows(m))
+    want = max(1, min(nb, -(-TARGET_CTAS // tiles)))
+    chunk = -(-nb // want)
+    return chunk, -(-nb // chunk)
+
+
+def plan_ranges(m: int, n: int, nb: int) -> list:
+    """Each CTA's (columns, superblocks, rows) as ``range``s, in the order
+    of the kernel's grid (x: column tile, y: split, z: row tile)."""
+    chunk, splits = plan(m, n, nb)
+    rows = tile_rows(m)
+    return [(range(c, min(n, c + TILE_COLS)),
+             range(s * chunk, min(nb, (s + 1) * chunk)),
+             range(r, min(m, r + rows)))
+            for r in range(0, m, rows) for s in range(splits)
+            for c in range(0, n, TILE_COLS)]
+
+
+# ---------------------------------------------------------------------------
 # Wrapper
 # ---------------------------------------------------------------------------
 
-def _launch(x, bitmap, signmant, exp3, emax, book, *, block, keep, trunc,
-            exp_bits) -> torch.Tensor:
+@functools.lru_cache(maxsize=1024)
+def _launch_shape(m: int, n: int, nb: int, block: int, keep: int, trunc: int,
+                  exp_bits: int) -> tuple:
+    """(wsm, we, chunk, splits) of one launch: the host work shared by every
+    call of a shape, done once."""
     if exp_bits != 3:
         raise ValueError(f"the kernel reads 3-bit rank codes (exp_bits={exp_bits})")
     if not 0 <= trunc <= 7:
         raise ValueError(f"trunc={trunc} outside [0, 7]")
+    wsm = coding.region_words(keep, 1 + bitops.MANT_BITS - trunc)
+    we = coding.region_words(keep, exp_bits)
+    return (wsm, we, *plan(m, n, nb))
+
+
+def _launch(x, bitmap, signmant, exp3, emax, book, *, block, keep, trunc,
+            exp_bits) -> torch.Tensor:
     m, k = x.shape
     n, nb = bitmap.shape[0], bitmap.shape[1]
     if nb * block != k:
         raise ValueError(f"x has K={k} but the weight {nb}x{block}")
-    wsm = coding.region_words(keep, 1 + bitops.MANT_BITS - trunc)
-    we = coding.region_words(keep, exp_bits)
+    wsm, we, chunk, splits = _launch_shape(m, n, nb, block, keep, trunc,
+                                           exp_bits)
     build.check(x, "x", torch.bfloat16, (m, k))
     build.check(bitmap, "bitmap", torch.int32, (n, nb, block // 32))
     build.check(signmant, "signmant", torch.int32, (n, nb, wsm))
     build.check(exp3, "exp3", torch.int32, (n, nb, we))
     build.check(emax, "emax", torch.int32, (n, nb))
     build.check(book, "book", torch.int32, (8,))
+    if x.data_ptr() % 16:
+        x = x.clone()                   # the kernel reads x 16 B at a time
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = build.entry("draft_matmul", "cassandra_draft_matmul", 7, 8)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        tickets = build.tickets(x.device, -(-n // TILE_COLS)
+                                * -(-m // tile_rows(m)))
+    fn = build.entry("draft_matmul", "cassandra_draft_matmul", 9, 9)
     err = fn(x.data_ptr(), bitmap.data_ptr(), signmant.data_ptr(),
              exp3.data_ptr(), emax.data_ptr(), book.data_ptr(), y.data_ptr(),
-             m, k, n, block, keep, trunc, wsm, we, stream)
+             0 if ws is None else ws.data_ptr(),
+             0 if tickets is None else tickets.data_ptr(), m, k, n, block,
+             keep, trunc, wsm, we, chunk, build.stream(x))
     build.raise_on(err, "draft_matmul")
     draft_matmul.launches += 1
     return y

@@ -33,6 +33,8 @@ Packed words are int32 bit-views; every right shift is masked.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import bitops
@@ -223,6 +225,62 @@ def paged_gqa_packed_plain(q, k_spec, v_spec, table, length, book, *,
                            table, length, scale=scale)
 
 
+# ---------------------------------------------------------------------------
+# The packed kernel's table split (flash decoding) and its plain version
+# ---------------------------------------------------------------------------
+
+Q_TILE = 16                     # query rows (of G*T) per CTA
+TARGET_CTAS = 4 * build.SM_COUNT
+
+
+def gqa_split_plan(b: int, hkv: int, g: int, t: int, mb: int
+                   ) -> tuple[int, int]:
+    """(table blocks per CTA, splits) of the packed kernel's grid
+    (B·Hkv, splits, ⌈G·T/16⌉): splits reach ``TARGET_CTAS`` where the
+    table allows."""
+    ctas = b * hkv * -(-(g * t) // Q_TILE)
+    want = max(1, min(max(mb, 1), -(-TARGET_CTAS // max(ctas, 1))))
+    bps = -(-max(mb, 1) // want)
+    return bps, -(-max(mb, 1) // bps)
+
+
+_split_plan = functools.lru_cache(maxsize=1024)(gqa_split_plan)
+
+
+def merge_flash_plain(parts):
+    """Merge the flash states ``(acc, m, l)`` of consecutive table chunks,
+    in chunk order: m = max m_s, l = Σ l_s·exp(m_s − m), acc = Σ
+    acc_s·exp(m_s − m). Chunks that read nothing (m = −1e30, l = 0,
+    acc = 0) add nothing; all empty gives the initial state."""
+    m = parts[0][1]
+    for _, ms, _ in parts[1:]:
+        m = torch.maximum(m, ms)
+    acc, l = torch.zeros_like(parts[0][0]), torch.zeros_like(m)
+    for a_s, m_s, l_s in parts:
+        c = torch.exp(m_s - m)
+        acc = acc + a_s * c[..., None]
+        l = l + l_s * c
+    return acc, m, l
+
+
+def paged_gqa_packed_split_plain(q, k_spec, v_spec, table, length, book, *,
+                                 d: int, keep: int, trunc: int,
+                                 exp_bits: int, scale: float,
+                                 blocks_per_split: int):
+    """The packed kernel's split walk in plain torch: each chunk of
+    ``blocks_per_split`` table columns walked into its own flash state
+    (the row's length shifted to the chunk), then merged in chunk order."""
+    kw = dict(d=d, keep=keep, trunc=trunc, exp_bits=exp_bits)
+    kp = decode_spec_pool_plain(k_spec, book, **kw)
+    vp = decode_spec_pool_plain(v_spec, book, **kw)
+    bs = kp.shape[1]
+    length = length.to(torch.int32).reshape(-1).expand(q.shape[0])
+    parts = [paged_gqa_plain(q, kp, vp, table[:, j0:j0 + blocks_per_split],
+                             (length - j0 * bs).clamp_min(0), scale=scale)
+             for j0 in range(0, max(table.shape[1], 1), blocks_per_split)]
+    return merge_flash_plain(parts)
+
+
 def merge_gqa_suffix(acc, m, l, q, suf_k, suf_v, suf_valid, *,
                      scale: float) -> torch.Tensor:
     """Fold a (B, S, Hkv, D) suffix into paged flash state and normalise.
@@ -348,7 +406,8 @@ def paged_gqa_packed(q, k_spec: dict, v_spec: dict, table, length, book, *,
     ``k_spec``/``v_spec`` are a packed store's spec leaf dicts; ``book``
     the cache's exp_of_rank (uint8, ≥ 32 entries). Returns unnormalised
     (acc, m, l). CPU tensors take :func:`paged_gqa_packed_plain`; CUDA
-    tensors launch the kernel (``paged_gqa_packed.launches``) or raise."""
+    tensors launch the kernel (``paged_gqa_packed.launches``, one per call
+    with its split merge) or raise."""
     kw = dict(d=d, keep=keep, trunc=trunc, exp_bits=exp_bits)
     if q.device.type == "cpu":
         return paged_gqa_packed_plain(q, k_spec, v_spec, table, length, book,
@@ -362,11 +421,17 @@ def paged_gqa_packed(q, k_spec: dict, v_spec: dict, table, length, book, *,
         raise ValueError(f"q has head dim {dims[4]}, the pool {d}")
     kp, wsm, we = _spec_words(k_spec, nb, bs, dims[2], **kw)
     vp, _, _ = _spec_words(v_spec, nb, bs, dims[2], **kw)
-    fn = build.entry("paged_gqa", "paged_gqa_packed_launch", 17, 13, 1)
+    b, t, hkv, g = dims[:4]
+    bps, splits = _split_plan(b, hkv, g, t, dims[7])
+    ws = None
+    if splits > 1:              # partial (acc, m, l) of every split
+        ws = torch.empty(splits * m.numel() * (d + 2), dtype=torch.float32,
+                         device=q.device)
+    fn = build.entry("paged_gqa", "paged_gqa_packed_launch", 18, 14, 1)
     err = fn(q.data_ptr(), *kp, *vp, book.data_ptr(), table.data_ptr(),
              length.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-             *dims, keep, trunc, exp_bits, wsm, we, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             0 if ws is None else ws.data_ptr(), *dims, keep, trunc,
+             exp_bits, wsm, we, bps, float(scale), build.stream(q))
     build.raise_on(err, "paged_gqa_packed")
     paged_gqa_packed.launches += 1
     return acc, m, l

@@ -35,6 +35,18 @@ def card():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def fresh_plans():
+    """Clears the wrappers' cached launch plans around a test that forces
+    other plans by patching the CTA targets."""
+    from repro_torch.kernels import paged_attention as PA
+    DM._launch_shape.cache_clear()
+    PA._split_plan.cache_clear()
+    yield
+    DM._launch_shape.cache_clear()
+    PA._split_plan.cache_clear()
+
+
 def _operands(shape, card, trunc=4):
     cass = CassandraConfig(variant=1, weight_trunc=trunc)
     gen = torch.Generator().manual_seed(shape[0] * 7 + shape[1] + trunc)
@@ -80,6 +92,60 @@ def test_kernel_other_mantissa_widths(card, trunc):
     w = DM.draft_matmul(eye, *args, **kw).to(torch.bfloat16)
     assert torch.equal(w.view(torch.int16), DM.draft_weight_plain(
         *args, **kw).contiguous().view(torch.int16))
+
+
+def _card_operands(shape, card, trunc):
+    """A C-1 weight of ``shape`` formatted on the card (full-size shapes)."""
+    cass = CassandraConfig(variant=1, weight_trunc=trunc)
+    gen = torch.Generator(device=card).manual_seed(shape[0] + shape[1])
+    w = torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+    spec, _ = format_weight(w, None, cass)
+    ops = DM.prepare_draft_operands(spec, cass, shape)
+    block = cass.weight_block(shape[0])
+    kw = dict(block=block, keep=cass.weight_keep(block), trunc=trunc,
+              exp_bits=cass.exp_bits)
+    return [ops[k] for k in ("bitmap", "signmant", "exp3", "emax",
+                             "book")], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out,trunc", [
+    (512, 1024, 4),        # NB 1
+    (1536, 1000, 4),       # NB 3, ragged N
+    (7168, 576, 4),        # NB 14, the MLA kv_a projection
+    (14336, 1024, 4),      # NB 28 (w_down's depth)
+    (1536, 576, 0),        # 8-bit sign|mantissa codes
+    (7168, 1000, 7)])      # 1-bit codes
+def test_kernel_plans_match_plain_on_card(card, n_in, n_out, trunc,
+                                          monkeypatch, fresh_plans):
+    """Every M of a decode batch and beyond, the main path's plan and
+    plans forced unsplit and to one superblock a split by the CTA target:
+    y within rtol 2e-2 / atol 1e-3 of the plain version, one launch counted
+    per call; the decoded weight bit for bit through identity rows under
+    every plan; two launches equal bit for bit."""
+    args, kw = _card_operands((n_in, n_out), card, trunc)
+    nb = n_in // kw["block"]
+    gen = torch.Generator(device=card).manual_seed(n_in + trunc)
+    eye = torch.eye(n_in, dtype=torch.bfloat16, device=card)
+    w_plain = DM.draft_weight_plain(*args, **kw).contiguous()
+    for target, splits in ((DM.TARGET_CTAS, None), (1, 1), (10 ** 9, nb)):
+        monkeypatch.setattr(DM, "TARGET_CTAS", target)
+        DM._launch_shape.cache_clear()
+        assert splits in (None, DM.plan(4, n_out, nb)[1])
+        for m in (1, 3, 4, 5, 8, 9, 17):
+            x = torch.randn((m, n_in), generator=gen, device=card).to(
+                torch.bfloat16)
+            before = DM.draft_matmul.launches
+            y = DM.draft_matmul(x, *args, **kw)
+            y2 = DM.draft_matmul(x, *args, **kw)
+            torch.cuda.synchronize()
+            assert DM.draft_matmul.launches == before + 2
+            torch.testing.assert_close(
+                y, DM.draft_matmul_plain(x, *args, **kw), rtol=2e-2,
+                atol=1e-3)
+            assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+        w = DM.draft_matmul(eye, *args, **kw).to(torch.bfloat16)
+        assert torch.equal(w.view(torch.int16), w_plain.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -208,6 +274,67 @@ def test_paged_kernels_match_plain_on_card(card, t, d, bs):
         before[0] + 1, before[1] + 1)
     for a, b in list(zip(got, want)) + list(zip(got_p, want_p)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert (got[0][1] == 0).all() and (got[1][1] == PA.NEG_INF).all()
+
+
+def _nan_unread(spec, table, length, bs):
+    """The speculation words of every pool row that no valid position of
+    the walk reads set to decode as NaN (delta mode, exponent 255, a
+    nonzero mantissa)."""
+    nb = spec["bitmap"].shape[0]
+    live = torch.zeros((nb, bs), dtype=torch.bool)
+    for row, n in enumerate(length.tolist()):
+        for j, blk in enumerate(table[row].tolist()):
+            k = min(bs, n - j * bs)
+            if k > 0:
+                live[blk if 0 <= blk < nb else 0, :k] = True
+    dead = ~live.to(spec["bitmap"].device)
+    out = {}
+    for name, x in spec.items():
+        fill = {"bitmap": -1, "signmant": -1, "exp_words": 0,
+                "exp_mode": 1, "exp_emax": 255}[name]
+        d = dead.reshape(nb, bs, *([1] * (x.ndim - 2)))
+        out[name] = torch.where(d, torch.full_like(x, fill), x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("split", [None, 1, 2, 6])
+def test_paged_gqa_packed_splits_on_card(card, t, split, monkeypatch,
+                                         fresh_plans):
+    """The flash-decoding split of the packed kernel: rows shorter than one
+    split (33 and 1 tokens at 3 blocks a split), a row that ends mid-block,
+    an empty row, out-of-range table entries, NaN in every unread pool row;
+    (acc, m, l) within rtol 1e-4 / atol 1e-5 of the plain version, one
+    launch counted per call, two launches equal bit for bit. A split
+    count other than the main path's (None) is forced by the CTA target."""
+    from repro_torch.kernels import paged_attention as PA
+    q, _, _, ks, vs, table, length, eor, kw = _paged_inputs(
+        card, d=128, t=t, bs=16, seed=40 + t)
+    b, _, hkv, g = q.shape[:4]
+    if split is not None:
+        monkeypatch.setattr(PA, "TARGET_CTAS",
+                            split * b * hkv * -(-(g * t) // PA.Q_TILE))
+        assert PA._split_plan(b, hkv, g, t, table.shape[1])[1] == split
+    ks, vs = (_nan_unread(sp, table.cpu(), length.cpu(), 16)
+              for sp in (ks, vs))
+    dead = PA.decode_spec_pool_plain(vs, eor, **kw)
+    assert dead.isnan().any()
+    scale = 128 ** -0.5
+    before = PA.paged_gqa_packed.launches
+    got = PA.paged_gqa_packed(q, ks, vs, table, length, eor, scale=scale,
+                              **kw)
+    again = PA.paged_gqa_packed(q, ks, vs, table, length, eor, scale=scale,
+                                **kw)
+    want = PA.paged_gqa_packed_plain(q, ks, vs, table, length, eor,
+                                     scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert PA.paged_gqa_packed.launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
     assert (got[0][1] == 0).all() and (got[1][1] == PA.NEG_INF).all()
 
 
