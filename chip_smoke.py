@@ -210,11 +210,30 @@ def _mla_weights_by_shape(packed, cfg) -> dict:
     }
 
 
+def _mla_target_by_shape(packed, cfg) -> dict:
+    """The MLA model's target-pass weights: the draft products and kv_b."""
+    out = _mla_weights_by_shape(packed, cfg)
+    out["kv_b"] = (packed["dec"][0]["e0"]["attn"]["kv_b"]["w"], cfg.n_layers)
+    return out
+
+
 def _layer(w: dict, r: int) -> dict:
     """Layer ``r`` of a stacked packed weight (a 2-D weight is its own)."""
     if w["spec"]["bitmap"].ndim == 3:
         return w
     return {z: {k: v[r] for k, v in w[z].items()} for z in ("spec", "kernel")}
+
+
+def _layer_sv(w: dict, r: int) -> tuple:
+    """(spec, verif) of layer ``r`` of a stacked packed weight."""
+    if w["spec"]["bitmap"].ndim == 3:
+        return w["spec"], w["verif"]
+    return tuple({k: v[r] for k, v in w[z].items()} for z in ("spec", "verif"))
+
+
+def _n_layers(w: dict) -> int:
+    bm = w["spec"]["bitmap"]
+    return 1 if bm.ndim == 3 else bm.shape[0]
 
 
 COLD_BYTES = 100e6                 # > 2 x the 50 MB L2: every launch cold
@@ -348,6 +367,163 @@ def draft_shapes(weights: dict, cass, gen, tag: str) -> dict:
 def kernel_phase(packed, cfg, cass, gen) -> dict:
     """Phase 4: ``draft_matmul`` per Llama-3-8B shape."""
     return draft_shapes(_weights_by_shape(packed, cfg), cass, gen, "kernel")
+
+
+TD_OPS_PER_VALUE = 16              # target_decode's integer operations per
+                                   # value (bit test, prefix counts, select,
+                                   # field extraction and join), rounded up
+
+
+def _packed_weights(packed):
+    """Every packed weight of a model, in tree order, with its path."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            if "spec" in node and "verif" in node:
+                out.append((path, node))
+                return
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+
+    walk(packed, "")
+    return out
+
+
+def target_all_bitwise(packed, cass, tag: str) -> float:
+    """``target_decode`` on every packed weight matrix of the model (every
+    layer of every stacked weight) bit for bit against the plain chain
+    ``format.target_weight_plain``. Returns the largest absolute difference
+    seen (0.0 when every value's bits agree)."""
+    import torch
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.kernels import unary_decode as UD
+    t0 = time.perf_counter()
+    n = modes = 0
+    max_err = 0.0
+    for path, w in _packed_weights(packed):
+        shape = DM.packed_shape(w)
+        for r in range(_n_layers(w)):
+            spec, verif = _layer_sv(w, r)
+            got = UD.target_decode(spec, verif, cass, shape)
+            want = fmt.target_weight_plain(spec, verif, cass, shape).T
+            diff = got.view(torch.int16) != want.view(torch.int16)
+            if bool(diff.any()):
+                err = (got[diff].float() - want[diff].float()).abs().max()
+                max_err = max(max_err, float(err))
+                fail(f"{tag}: target_decode of {path} layer {r} differs from "
+                     f"the plain chain in {int(diff.sum())} values (max abs "
+                     f"diff {max_err})")
+            modes += int(spec["exp_mode"].sum()) + int(
+                verif.get("pruned_exp_mode", spec["exp_mode"][:0]).sum())
+            n += 1
+            del got, want, diff
+    torch.cuda.synchronize()
+    say(f"[{tag}] target_decode: all {n} packed weight matrices bit for bit "
+        f"against the plain chain ({modes} mode-1 superblocks among them; "
+        f"max abs diff {max_err}; {time.perf_counter() - t0:.1f} s)")
+    return max_err
+
+
+def target_bytes(spec: dict, verif: dict) -> int:
+    """The bytes ``target_decode`` must read for one weight: every packed
+    leaf, but a region's correction nibbles only for the superblocks whose
+    mode byte is 1 (the only ones that use them)."""
+    from repro_torch.core.format import tree_nbytes
+    nbytes = tree_nbytes(spec) + tree_nbytes(verif)
+    for corr, mode in (("exp_corr", spec.get("exp_mode")),
+                       ("pruned_exp_corr", verif.get("pruned_exp_mode"))):
+        if corr in verif:
+            c = verif[corr]
+            per_sb = c.shape[-1] * c.element_size()
+            nbytes += per_sb * int(mode.sum()) - tree_nbytes(c)
+    return nbytes
+
+
+def target_shapes(weights: dict, cass, gen, tag: str, m: int) -> dict:
+    """``target_decode`` per shape on a model's own packed weights: kernel
+    time on the card's clock (graph replay) and eager, each launch on a
+    cold weight (the rotation runs over the model's layers, cloned until
+    it holds COLD_BYTES); the plain chain's time; the bound (the bytes
+    ``target_bytes`` counts, averaged over the rotation's layers, read
+    once and the bf16 view written once, at 3.35 TB/s; the integer
+    operations at the CUDA cores' 67 T/s); and cuBLAS's time for
+    the product that follows in the verify pass, x (m, n_in) @ the view
+    (not the same function: the decode has no library equivalent)."""
+    import torch
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.kernels import unary_decode as UD
+    from repro_torch.core.format import tree_nbytes
+
+    rows, agg = [], {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
+                     "bound_ms": 0.0, "cublas_ms": 0.0, "bytes": 0,
+                     "ops": 0, "launches": 0}
+    for name, (w, per_pass) in weights.items():
+        shape = DM.packed_shape(w)
+        n_in, n_out = shape
+        layers = [_layer_sv(w, r) for r in range(_n_layers(w))]
+        held = tree_nbytes(layers[0])
+        copies = max(1, math.ceil(COLD_BYTES / (held * len(layers))))
+        # what the rotation's launches must read, per launch
+        op_bytes = sum(target_bytes(*sv) for sv in layers) / len(layers)
+        rot = layers + [tuple({k: v.clone() for k, v in t.items()}
+                              for t in sv)
+                        for _ in range(copies - 1) for sv in layers]
+
+        def run_kernel():
+            for spec, verif in rot:
+                UD.target_decode(spec, verif, cass, shape)
+        reps = max(1, 32 // len(rot))
+        k_ms = graph_ms(run_kernel, reps) / len(rot)
+        k_eager = cuda_ms(run_kernel, reps) / len(rot)
+        plain_ms = cuda_ms(lambda: fmt.target_weight_plain(
+            *layers[0], cass, shape), 1)
+        x = torch.randn((m, n_in), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dense = [UD.target_decode(*sv, cass, shape) for sv in rot[:8]]
+
+        def run_cublas():
+            for d in dense:
+                torch.matmul(x, d.T)
+        c_ms = graph_ms(run_cublas, max(1, 32 // len(dense))) / len(dense)
+        del dense, rot
+        nbytes = op_bytes + n_in * n_out * 2
+        ops = TD_OPS_PER_VALUE * n_in * n_out
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
+        bound_ms = max(tb, to) * 1e3
+        rows.append((name, n_in, n_out, per_pass, k_ms, k_eager, bound_ms,
+                     plain_ms, c_ms, "bytes" if tb >= to else "operations"))
+        for key, v in (("ms", k_ms), ("eager_ms", k_eager),
+                       ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                       ("cublas_ms", c_ms)):
+            agg[key] += per_pass * v
+        agg["bytes"] += per_pass * nbytes
+        agg["ops"] += per_pass * ops
+        agg["launches"] += per_pass
+        torch.cuda.empty_cache()
+    say(f"[{tag}] target_decode, (in,out) per shape; us per launch, each on "
+        f"a cold weight; kernel on the card's clock (graph replay), eager in "
+        f"parentheses; cuBLAS: the product that follows, M={m}:")
+    for (name, n_in, n_out, per_pass, k_ms, k_eg, b_ms, p_ms, c_ms,
+         by) in rows:
+        say(f"[{tag}]   {name:12s} ({n_in},{n_out}) x{per_pass}/pass: kernel "
+            f"{k_ms * 1e3:.1f} ({k_eg * 1e3:.1f})  bound {b_ms * 1e3:.1f} "
+            f"({by})  kernel/bound {k_ms / b_ms:.2f}  plain "
+            f"{p_ms * 1e3:.1f}  cuBLAS product {c_ms * 1e3:.1f}")
+    say(f"[{tag}] one target pass's decodes ({agg['launches']} launches): "
+        f"kernel {agg['ms']:.3f} ms (eager {agg['eager_ms']:.3f}), bound "
+        f"{agg['bound_ms']:.3f} ms ({agg['bytes'] / 1e9:.3f} GB), plain "
+        f"{agg['plain_ms']:.1f} ms; the products after them in cuBLAS "
+        f"{agg['cublas_ms']:.3f} ms")
+    agg["rows"] = rows
+    agg["bound_by"] = ("bytes" if agg["bytes"] / HBM_BYTES_PER_S
+                       >= agg["ops"] / CORE_OPS_PER_S else "operations")
+    return agg
 
 
 # ---------------------------------------------------------------------------
@@ -557,14 +733,14 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     if launches == 0 or launches != expect:
         fail(f"main: draft_matmul launched {launches} times, expected "
              f"{expect}")
-    # the target decode of every weight (kept and pruned exponent regions)
-    # per target pass, the KV target view per layer per verify pass, the
+    # one target_decode per packed weight per target pass; the exponent
+    # decode of the KV target view per layer per verify pass and of the
     # cache's draft view once per cycle; the KV encode per commit
-    cyc, units = st_sp["cycles"], decode_units(packed)
+    cyc, mats = st_sp["cycles"], packed_matrices(packed)
     check_launches("main", codec, {
         "mx_decode": 0, "kv_topk": 2 * (1 + cyc),
-        "unary_decode": 2 * units * (1 + cyc) + 2 * cfg.n_layers * cyc
-        + 2 * cyc})
+        "unary_decode": 2 * cfg.n_layers * cyc + 2 * cyc,
+        "target_decode": mats * (1 + cyc)})
     say(f"[main] spec: cycles {st_sp['cycles']}, acceptance "
         f"{st_sp['acceptance']:.3f}, tokens/cycle "
         f"{st_sp['tokens_per_cycle']:.3f}, {b * n / sp_s:.2f} tok/s "
@@ -897,7 +1073,7 @@ def _main_row(paged: dict, name: str, t: int) -> dict:
 
 
 def sched_phase(packed, cfg, cass, args, main: dict, paged: dict,
-                agg: dict) -> dict:
+                agg: dict, target: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import draft_matmul as DM
@@ -929,7 +1105,8 @@ def sched_phase(packed, cfg, cass, args, main: dict, paged: dict,
     # the packed kernel decodes the draft KV itself: no draft view
     check_launches("sched", codec, {
         "mx_decode": 0, "kv_topk": 2 * targets,
-        "unary_decode": targets * (2 * decode_units(packed) + 2 * layers)})
+        "unary_decode": targets * 2 * layers,
+        "target_decode": targets * packed_matrices(packed)})
     # the first cycle: the wide prefill's last logits against the Engine's
     # prefill logits at the same tokens
     lg = main["lg"].numpy()
@@ -962,11 +1139,13 @@ def sched_phase(packed, cfg, cass, args, main: dict, paged: dict,
                "paged_gqa_packed": cass.gamma * layers * _main_row(
                    paged, "paged_gqa_packed", 1)["ms"],
                "paged_gqa": layers * _main_row(
-                   paged, "paged_gqa", cass.gamma + 1)["ms"]}
+                   paged, "paged_gqa", cass.gamma + 1)["ms"],
+               "target_decode": target["ms"]}
     say(f"[sched] kernels per unified cycle (phase 4 / 4b times x launches): "
         f"draft_matmul {kern_ms['draft_matmul']:.1f} ms, paged_gqa_packed "
         f"{kern_ms['paged_gqa_packed'] * 1e3:.0f} us, paged_gqa "
-        f"{kern_ms['paged_gqa'] * 1e3:.0f} us; {sum(kern_ms.values()):.1f} ms "
+        f"{kern_ms['paged_gqa'] * 1e3:.0f} us, target_decode "
+        f"{kern_ms['target_decode']:.1f} ms; {sum(kern_ms.values()):.1f} ms "
         f"in all")
     say(f"[sched] per cycle: unified step {uni.get('mean_ms', 0.0):.1f} ms "
         f"(x{uni.get('calls', 0)}), wide prefill "
@@ -1233,8 +1412,8 @@ def codec_mx_phase(packed, cfg, cass, prompt) -> list:
 
 
 def decode_units(packed) -> int:
-    """``ROW_CHUNK`` pieces one full decode of every packed weight runs (one
-    MX or exponent decode each): a piece per layer per weight, lm_head in
+    """``ROW_CHUNK`` pieces one full C-2 decode of every packed weight runs
+    (one MX decode each): a piece per layer per weight, lm_head in
     ceil(vocab / ROW_CHUNK)."""
     from repro_torch.core.format import ROW_CHUNK
     n = 0
@@ -1257,12 +1436,19 @@ def decode_units(packed) -> int:
     return n
 
 
+def packed_matrices(packed) -> int:
+    """Packed weight matrices of a model (a stacked weight counts once per
+    layer): one ``target_decode`` launch each per C-1 target pass."""
+    return sum(_n_layers(w) for _, w in _packed_weights(packed))
+
+
 def codec_launches() -> dict:
     from repro_torch.kernels import kv_topk as KT, mx_decode as MXD
     from repro_torch.kernels import unary_decode as UD
     return {"mx_decode": MXD.mx_decode.launches,
             "kv_topk": KT.kv_topk.launches,
-            "unary_decode": UD.unary_decode.launches}
+            "unary_decode": UD.unary_decode.launches,
+            "target_decode": UD.target_decode.launches}
 
 
 def reset_launches() -> None:
@@ -1271,7 +1457,8 @@ def reset_launches() -> None:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import unary_decode as UD
     for fn in (DM.draft_matmul, PA.paged_gqa, PA.paged_gqa_packed,
-               PA.paged_mla, MXD.mx_decode, KT.kv_topk, UD.unary_decode):
+               PA.paged_mla, MXD.mx_decode, KT.kv_topk, UD.unary_decode,
+               UD.target_decode):
         fn.launches = 0
 
 
@@ -1405,7 +1592,7 @@ def c2_main_phase(cfg, args, prompt) -> dict:
     check_launches("c2", launches, {
         "mx_decode": units * (1 + cyc) + 2 * layers * cyc
         + gamma * cyc * units + 2 * cyc,
-        "kv_topk": 2 * (1 + cyc), "unary_decode": 0})
+        "kv_topk": 2 * (1 + cyc), "unary_decode": 0, "target_decode": 0})
     say(f"[c2] spec: cycles {cyc}, acceptance {st['acceptance']:.3f}, "
         f"tokens/cycle {st['tokens_per_cycle']:.3f}, {b * n / sp_s:.2f} tok/s "
         f"({sp_s:.1f} s); max_memory_allocated {peak / 2**30:.2f} GiB")
@@ -1451,7 +1638,8 @@ def c2_depth_phase(args, gen) -> None:
             check_launches("c2-sched", got, {
                 "mx_decode": targets * (units + 2 * cfg.n_layers)
                 + gamma * unified * units + 2 * unified,
-                "kv_topk": 2 * targets, "unary_decode": 0})
+                "kv_topk": 2 * targets, "unary_decode": 0,
+                "target_decode": 0})
     for other in ("overlap off", "alternating"):
         same = np.array_equal(runs[other], runs["fused"])
         say(f"[c2-sched] {other} == fused with overlap, bit for bit: {same}")
@@ -1796,15 +1984,16 @@ def mla_engine_phase(m, args) -> dict:
     if equal != b * n:
         fail(f"mla-engine: spec tokens differ from AR at the verify width on "
              f"{b * n - equal} positions")
-    cyc, units = st["cycles"], decode_units(packed)
+    cyc, mats = st["cycles"], packed_matrices(packed)
     drafts = st["draft_passes"]
     expect = {"draft_matmul": drafts * (7 * layers + 1), "paged_mla": 0,
               "mx_decode": 0, "kv_topk": 2 * (1 + cyc),
-              # every weight (kept and pruned regions) per target pass, the
-              # KV target view per layer per verify pass, the draft view
-              # once per cycle, kv_b's draft view per layer per draft pass
-              "unary_decode": 2 * units * (1 + cyc) + 2 * layers * cyc
-              + 2 * cyc + drafts * layers * _kv_b_pieces(packed)}
+              # the KV target view per layer per verify pass, the draft
+              # view once per cycle, kv_b's draft view per layer per draft
+              # pass; every weight's target view once per target pass
+              "unary_decode": 2 * layers * cyc + 2 * cyc
+              + drafts * layers * _kv_b_pieces(packed),
+              "target_decode": mats * (1 + cyc)}
     check_launches("mla-engine", launches, expect)
     say(f"[mla-engine] spec: cycles {cyc}, acceptance "
         f"{st['acceptance']:.3f}, tokens/cycle {st['tokens_per_cycle']:.3f}, "
@@ -1845,15 +2034,16 @@ def mla_sched_phase(m, args, eng: dict) -> dict:
     del sched
     unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
     drafts, targets = gamma * unified, st["cycles"]
-    units = decode_units(packed)
     expect = {"draft_matmul": drafts * (7 * layers + 1),
               "paged_mla": (targets + drafts) * layers,
               "paged_gqa": 0, "paged_gqa_packed": 0, "mx_decode": 0,
               "kv_topk": 2 * targets,
-              # per target pass every weight and the KV target view per
-              # layer; per draft pass the KV draft view and kv_b per layer
-              "unary_decode": targets * (2 * units + 2 * layers)
-              + drafts * layers * (2 + _kv_b_pieces(packed))}
+              # per target pass the KV target view per layer (and every
+              # weight's target view, target_decode); per draft pass the
+              # KV draft view and kv_b per layer
+              "unary_decode": targets * 2 * layers
+              + drafts * layers * (2 + _kv_b_pieces(packed)),
+              "target_decode": targets * packed_matrices(packed)}
     say(f"[mla-sched] launches {launches}; expected {expect}: "
         f"{launches == expect} (paged_mla: (target passes {targets} + draft "
         f"passes {drafts}) x {layers} layers)")
@@ -2003,6 +2193,13 @@ def run(args) -> None:
 
     # 4. kernels against their plain versions
     agg = kernel_phase(packed, cfg, cass, gen)
+    # the target view of every weight, bit for bit and per shape (inputs
+    # from a generator of their own: phase 6 draws its prompts from gen)
+    td_err = target_all_bitwise(packed, cass, "kernel")
+    target = target_shapes(_weights_by_shape(packed, cfg), cass,
+                           torch.Generator(device="cuda").manual_seed(
+                               args.seed + 4), "kernel",
+                           args.requests * (cass.gamma + 1))
     # 5. small input against the CPU
     small_phase(args.seed)
     # 6. main path
@@ -2016,7 +2213,7 @@ def run(args) -> None:
                            torch.Generator(device="cuda").manual_seed(
                                args.seed + 2))
     # 7. the paged scheduler at full width
-    sched = sched_phase(packed, cfg, cass, args, main, paged, agg)
+    sched = sched_phase(packed, cfg, cass, args, main, paged, agg, target)
     say(f"[sched] max_memory_allocated during the scheduler run "
         f"{sched['peak'] / 2**30:.2f} GiB")
     del packed
@@ -2039,6 +2236,12 @@ def run(args) -> None:
     draft_shapes(_mla_weights_by_shape(mla["packed"], mla["cfg"]),
                  mla["cass"], torch.Generator(device="cuda").manual_seed(
                      args.seed + 3), "mla-kernels")
+    td_err = max(td_err, target_all_bitwise(mla["packed"], mla["cass"],
+                                            "mla-kernels"))
+    target_shapes(_mla_target_by_shape(mla["packed"], mla["cfg"]),
+                  mla["cass"], torch.Generator(device="cuda").manual_seed(
+                      args.seed + 5), "mla-kernels",
+                  args.requests * (mla["cass"].gamma + 1))
     mla_k = mla_kernel_phase(mla, args.max_new)
     codec += mla_k["codec"]
     mla_e = mla_engine_phase(mla, args)
@@ -2049,7 +2252,8 @@ def run(args) -> None:
 
     # 14. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
-        '"paged_mla", "mx_decode", "kv_topk", "unary_decode"]')
+        '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
+        '"target_decode"]')
     line = {"kernels": [{
         "name": "draft_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/draft_matmul.cu",
@@ -2110,6 +2314,19 @@ def run(args) -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None})
+    # target_decode: one verify pass's 225 decodes (phase 4's per-shape
+    # times x launches per pass), launches from phase 6's C-1 run; it
+    # replaces the TPU kernel together with the reference's target_tensor
+    # chain around it, and no PyTorch call computes the same function
+    line["kernels"].append({
+        "name": "target_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/unary_decode.cu",
+        "replaces": "src/repro/kernels/unary_decode.py:51",
+        "launches": main["codec"]["target_decode"],
+        "max_abs_err": td_err,
+        "ms": target["ms"], "plain_ms": target["plain_ms"],
+        "bound_ms": target["bound_ms"], "bound_by": target["bound_by"],
+        "library_ms": None})
     for k in line["kernels"]:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

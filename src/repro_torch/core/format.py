@@ -24,7 +24,11 @@ decode through ``kernels/mx_decode.py`` (the CUDA kernel on the card).
 
 Selections that span the whole vector with magnitude scores (the KV
 encode) run through ``kernels/kv_topk.py``, and the unary exponent decode
-through ``kernels/unary_decode.py`` (``core/coding.py``).
+through ``kernels/unary_decode.py`` (``core/coding.py``). A Cassandra-1
+weight's target view on the card is one launch of that module's
+``target_decode``, which rebuilds the whole weight from its packed leaves;
+``target_weight_plain`` is the chain of plain steps it is held to, and
+what CPU tensors run.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch
 from repro_torch.core import bitops, coding, mx, pruning
 from repro_torch.kernels import kv_topk as KT
 from repro_torch.kernels import mx_decode as MXD
+from repro_torch.kernels import unary_decode as UD
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,10 +284,12 @@ def _trim_lossless(spec: dict, verif: dict, variant: int):
     return spec, verif
 
 
-# Row chunk for whole-weight decodes: a chunk of output columns of a packed
-# weight decodes with transients of a few hundred MB (C-1) to about a GB
-# (C-2's 12-bit low containers) at the paper defaults; lm_head (128256
-# columns) is decoded in 8 such pieces.
+# Row chunk for the plain whole-weight decodes (every C-1 and C-2 decode on
+# the CPU, C-2's views and the C-1 draft view on the card; the C-1 target
+# view on the card is one ``target_decode`` launch, with no transients): a
+# chunk of output columns of a packed weight decodes with transients of a
+# few hundred MB (C-1) to about a GB (C-2's 12-bit low containers) at the
+# paper defaults; lm_head (128256 columns) is decoded in 8 such pieces.
 ROW_CHUNK = 16384
 _SHARED_LEAVES = ("codebook", "pruned_codebook")
 
@@ -331,6 +338,19 @@ def draft_weight(spec: dict, cfg: CassandraConfig,
 
 def target_weight(spec: dict, verif: dict, cfg: CassandraConfig,
                   shape: tuple[int, int]) -> torch.Tensor:
+    """The exact (in, out) weight. Cassandra-1 on CUDA tensors is one
+    ``target_decode`` launch; Cassandra-2, and every weight on the CPU,
+    the plain chain :func:`target_weight_plain` (C-2's through
+    ``mx_decode``)."""
+    if cfg.variant == 1 and spec["bitmap"].is_cuda:
+        return UD.target_decode(spec, verif, cfg, shape).T
+    return target_weight_plain(spec, verif, cfg, shape)
+
+
+def target_weight_plain(spec: dict, verif: dict, cfg: CassandraConfig,
+                        shape: tuple[int, int]) -> torch.Tensor:
+    """``target_tensor`` over the weight, ``ROW_CHUNK`` columns at a time:
+    the reference's chain, step by step."""
     block = cfg.weight_block(shape[0])
     keep = cfg.weight_keep(block)
     return _by_rows(lambda s, v: target_tensor(s, v, cfg, block, keep,

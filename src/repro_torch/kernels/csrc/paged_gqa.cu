@@ -23,22 +23,39 @@
 // costs is latency: how many blocks one CTA walks in order, and how long
 // one block's decode takes.
 //
-// The plain walk (`paged_gqa`, simple and right first):
-//   * The TPU grid (B, MB) carried the flash state across a sequential MB
-//     axis. Here one CTA owns (row b, kv head h, a tile of <= 16 of the G*T
-//     query rows) and walks the row's table entries 0.. itself, in order:
-//     the state accumulates in the reference's block order, with no atomics.
-//     Blocks past the row's length are skipped: an all-masked flash step is
-//     an exact no-op (corr = exp(0) = 1, p = 0).
-//   * Each K and V block of head h (BS <= 32 tokens x D bf16) is staged in
-//     shared memory once per CTA; masked V rows are zeroed there (a masked
-//     packed lane can decode to NaN), masked K rows are never read.
-//   * Each warp owns query rows; each lane holds D/32 dims of q and of acc.
-//     A score is a warp-shuffle reduction; lane s keeps key s's score, so the
-//     block max, p and the row sum are warp reductions too. The online
-//     softmax runs in f32 registers, in the reference's form: scores masked
-//     by select to -1e30, p = 0 by select, m from -1e30, l from 0, expf.
-//   * Table entries outside [0, NB) read block 0, the trash block.
+// The plain walk (`paged_gqa`, redesigned for the card) reads bf16 K and V
+// rows straight from the pools. At the verify pass's shapes one launch
+// moves ~1 MB (Llama-3-8B, 4 rows of ~330 tokens), at 4 x 4096 tokens 67 MB;
+// what held the first version back was one CTA per (row, kv head, query
+// tile) walking the row's whole table in order (32 CTAs at T = 4), each
+// block loaded synchronously between two barriers, a shuffle reduction per
+// key. Its design now:
+//   * the packed walk's table split (flash decoding, below): `gqa_split_plan`
+//     cuts each (row, kv head)'s table into chunks of `bps` blocks, one CTA
+//     each, and the split-order merge kernel (a programmatic dependent)
+//     folds the partial states; no atomics, the same bits on every launch.
+//     `plain_split_plan` splits only while the (row, kv head, query tile)
+//     grid leaves SMs idle: a prefill chunk's tiles fill the card alone, and
+//     its CTAs walk their tables in order, with no merge;
+//   * loads kept in flight: a two-slot ring in shared memory; `cp.async`
+//     copies the next block's K and V rows of head h (D bf16 each, 16 bytes
+//     a thread, rows strided by Hkv * D in the pool) while the current block
+//     runs its flash step; rows past the row's length are neither copied nor
+//     read, and table entries outside [0, NB) read block 0, the trash block;
+//   * every lane busy in the flash step: lane (group, key) takes the whole
+//     dot q·k of one key for every GR-th of its warp's query rows, GR = 32
+//     over the block's keys rounded up (2 rows a lane at 16 keys, the
+//     verify pass's block), the rows interleaved for independent chains;
+//     each dot is a sequential f32 sum over D, the packed walk's order, and
+//     a tile with one live row a warp (G*T <= 4) takes the packed walk's
+//     step as it is: both give the same bits. QK^T on `mma.sync` was tried:
+//     its f32 accumulation differs from a sequential one enough that,
+//     through exp, rows of spread-out keys leave the tolerance the tests
+//     hold. P·V stays f32 on the CUDA cores: lane l holds D/32 dims of each
+//     of its warp's query rows, and every V row is read once for all of
+//     them.
+// The online softmax is the reference's form: scores masked by select to
+// -1e30, p = 0 by select, m from -1e30, l from 0, expf.
 //
 // The packed walk (`paged_gqa_packed`) is bound by latency: at the draft
 // pass's shapes one launch moves under 1 MB, so what it costs is how many
@@ -190,43 +207,6 @@ __device__ __forceinline__ void init_rows(const Walk& w, int b, int h,
   }
 }
 
-// One flash step over the staged tiles (nvalid tokens of K and V).
-template <int DPL>
-__device__ __forceinline__ void flash_block(const uint16_t* ks,
-                                            const uint16_t* vs, int nvalid,
-                                            float scale, int lane,
-                                            Rows<DPL>& st) {
-  constexpr int D = DPL * 32;
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    if (st.qrow[i] < 0) continue;                  // warp-uniform
-    float sc = kNegInf;                            // lane s: key s
-    for (int s = 0; s < nvalid; ++s) {
-      float kd[DPL];
-      load_dims<DPL>(ks + s * D + lane * DPL, kd);
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) part += st.q[i][c] * kd[c];
-      part = warp_sum(part);
-      if (lane == s) sc = part * scale;
-    }
-    const float m_new = fmaxf(st.m[i], warp_max(sc));
-    const float p = lane < nvalid ? expf(sc - m_new) : 0.f;
-    const float corr = expf(st.m[i] - m_new);
-    st.l[i] = st.l[i] * corr + warp_sum(p);
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) st.acc[i][c] *= corr;
-    for (int s = 0; s < nvalid; ++s) {
-      const float ps = __shfl_sync(kFull, p, s);
-      float vd[DPL];
-      load_dims<DPL>(vs + s * D + lane * DPL, vd);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) st.acc[i][c] += ps * vd[c];
-    }
-    st.m[i] = m_new;
-  }
-}
-
 template <int DPL>
 __device__ __forceinline__ void store_rows(const Walk& w, float* acc,
                                            float* m, float* l, int b, int h,
@@ -244,43 +224,6 @@ __device__ __forceinline__ void store_rows(const Walk& w, float* acc,
       l[o] = st.l[i];
     }
   }
-}
-
-template <int DPL>
-__global__ void __launch_bounds__(kThreads) paged_gqa_kernel(Walk w) {
-  constexpr int D = DPL * 32;
-  __shared__ __align__(16) uint16_t ks[kMaxBS * kMaxD];
-  __shared__ __align__(16) uint16_t vs[kMaxBS * kMaxD];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  Rows<DPL> st;
-  init_rows<DPL>(w, b, h, warp, lane, st);
-
-  const int len = w.length[b];
-  const int n_blocks = len > 0 ? min(w.MB, (len + w.BS - 1) / w.BS) : 0;
-  for (int j = 0; j < n_blocks; ++j) {
-    int blk = w.table[(size_t)b * w.MB + j];
-    if (blk < 0 || blk >= w.NB) blk = 0;                   // trash block
-    const int nvalid = min(w.BS, len - j * w.BS);
-    __syncthreads();                    // the previous block's tiles are used
-    constexpr int kChunks = D / 8;                      // 16 B per chunk
-    for (int idx = threadIdx.x; idx < 2 * w.BS * kChunks; idx += kThreads) {
-      const bool is_v = idx >= w.BS * kChunks;
-      const int rel = is_v ? idx - w.BS * kChunks : idx;
-      const int s = rel / kChunks, c8 = rel % kChunks;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (s < nvalid) {
-        const uint16_t* src = (is_v ? w.v_pool : w.k_pool) +
-            (((size_t)blk * w.BS + s) * w.Hkv + h) * D + c8 * 8;
-        v = *reinterpret_cast<const uint4*>(src);
-      }
-      *reinterpret_cast<uint4*>((is_v ? vs : ks) + s * D + c8 * 8) = v;
-    }
-    __syncthreads();
-    flash_block<DPL>(ks, vs, nvalid, w.scale, lane, st);
-  }
-  store_rows<DPL>(w, w.acc, w.m, w.l, b, h, lane, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -615,6 +558,206 @@ __global__ void __launch_bounds__(kThreads) paged_gqa_packed_kernel(Walk w) {
   asm volatile("griddepcontrol.launch_dependents;");    // the merge may start
 }
 
+// xor-butterfly reductions over groups of KL consecutive lanes (KL a power
+// of two): every lane ends with its group's result.
+template <int KL>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = KL / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+template <int KL>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = KL / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The plain walk's flash step over a staged block (nvalid <= KL keys). The
+// warp's lanes form GR groups of KL = 32/GR lanes; lane (grp, key) takes the
+// dot q·k of key `key` for the warp's rows grp, grp + GR, ... (RPL of them),
+// each a sequential f32 sum over the D dims (flash_block_keys' order, so
+// the two steps give the same bits), the rows interleaved. The
+// softmax reduces within each group; every lane then holds D/32 dims of
+// each of the warp's rows, and each V row is read once for all of them.
+template <int DPL, int GR>
+__device__ __forceinline__ void flash_block_rows(const uint16_t* ks,
+                                                 const uint16_t* vs,
+                                                 const float* qs, int nvalid,
+                                                 float scale, int warp,
+                                                 int lane, int nr,
+                                                 Rows<DPL>& st) {
+  constexpr int D = DPL * 32;
+  constexpr int KL = 32 / GR, RPL = kRowsPerWarp / GR;
+  const int grp = lane / KL, key = lane % KL;
+  float sc[RPL];
+#pragma unroll
+  for (int u = 0; u < RPL; ++u) sc[u] = kNegInf;
+  if (key < nvalid) {
+    const uint16_t* kr = ks + key * kKStride;
+    float dot[RPL];
+#pragma unroll
+    for (int u = 0; u < RPL; ++u) dot[u] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < D; c += 8) {
+      const uint4 k8 = *reinterpret_cast<const uint4*>(kr + c);
+      const float k0 = __uint_as_float(k8.x << 16);
+      const float k1 = __uint_as_float(k8.x & 0xFFFF0000u);
+      const float k2 = __uint_as_float(k8.y << 16);
+      const float k3 = __uint_as_float(k8.y & 0xFFFF0000u);
+      const float k4 = __uint_as_float(k8.z << 16);
+      const float k5 = __uint_as_float(k8.z & 0xFFFF0000u);
+      const float k6 = __uint_as_float(k8.w << 16);
+      const float k7 = __uint_as_float(k8.w & 0xFFFF0000u);
+#pragma unroll
+      for (int u = 0; u < RPL; ++u) {
+        const float* qr = qs + (warp + (grp + GR * u) * kWarps) * D + c;
+        const float4 qa = *reinterpret_cast<const float4*>(qr);
+        const float4 qb = *reinterpret_cast<const float4*>(qr + 4);
+        float d = dot[u];
+        d += qa.x * k0;
+        d += qa.y * k1;
+        d += qa.z * k2;
+        d += qa.w * k3;
+        d += qb.x * k4;
+        d += qb.y * k5;
+        d += qb.z * k6;
+        d += qb.w * k7;
+        dot[u] = d;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RPL; ++u) sc[u] = dot[u] * scale;
+  }
+  float mx[RPL], p[RPL], ps[RPL];
+#pragma unroll
+  for (int u = 0; u < RPL; ++u) mx[u] = group_max<KL>(sc[u]);
+  // every row's new max, on every lane; then this lane's p and row sums
+  float m_new[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+    m_new[r] = fmaxf(st.m[r], __shfl_sync(kFull, mx[r / GR], (r % GR) * KL));
+#pragma unroll
+  for (int u = 0; u < RPL; ++u) {
+    float own = m_new[GR * u];
+#pragma unroll
+    for (int q = 1; q < GR; ++q)
+      if (grp == q) own = m_new[q + GR * u];
+    p[u] = key < nvalid ? expf(sc[u] - own) : 0.f;
+    ps[u] = group_sum<KL>(p[u]);
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    if (r < nr) {                                 // warp-uniform
+      const float corr = expf(st.m[r] - m_new[r]);
+      st.l[r] = st.l[r] * corr +
+                __shfl_sync(kFull, ps[r / GR], (r % GR) * KL);
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) st.acc[r][c] *= corr;
+      st.m[r] = m_new[r];
+    }
+  }
+  for (int s = 0; s < nvalid; ++s) {
+    float vd[DPL];
+    load_dims<DPL>(vs + s * D + lane * DPL, vd);
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float pr = __shfl_sync(kFull, p[r / GR], (r % GR) * KL + s);
+      if (r < nr)
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) st.acc[r][c] += pr * vd[c];
+    }
+  }
+}
+
+// grid (B*Hkv, splits, query tiles): chunk `split` of row b's table over
+// the bf16 pools, kv head h, into (acc, m, l), or into partial state slice
+// `split` of the workspace when the table is split. The ring's slots hold
+// a K tile (BS rows of kKStride) and a V tile (BS rows of D). GR: lane
+// groups of the flash step (32 / GR >= BS).
+template <int DPL, int GR>
+__global__ void __launch_bounds__(kThreads) paged_gqa_kernel(Walk w) {
+  constexpr int D = DPL * 32;
+  constexpr int kChunks = D / 8;                      // 16 B per copy
+  __shared__ __align__(16) float qs[kQTile * kMaxD];
+  extern __shared__ __align__(16) uint32_t tiles[];
+  uint16_t* ring = reinterpret_cast<uint16_t*>(tiles);
+  const int slot_elems = w.BS * (kKStride + D);
+  const int b = blockIdx.x / w.Hkv, h = blockIdx.x % w.Hkv;
+  const int split = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = split * w.bps;
+  const int32_t* trow = w.table + (size_t)b * w.MB;
+  const int len = w.length[b];
+  const int first = j0 < w.MB ? trow[j0] : 0;
+
+  Rows<DPL> st;
+  init_rows<DPL>(w, b, h, warp, lane, st);
+  int nr = 0;                                 // this warp's live rows
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    nr += st.qrow[i] >= 0;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c)             // zero past G*T: no NaN there
+      qs[(warp + i * kWarps) * D + lane * DPL + c] =
+          st.qrow[i] >= 0 ? st.q[i][c] : 0.f;
+  }
+
+  const int n_blocks = len > 0 ? min(w.MB, (len + w.BS - 1) / w.BS) : 0;
+  const int j1 = min(n_blocks, j0 + w.bps);
+  // block j's valid K and V rows of head h into ring slot `slot`
+  auto stage = [&](int blk, int j, int slot) {
+    if (blk < 0 || blk >= w.NB) blk = 0;                   // trash block
+    const int nvalid = min(w.BS, len - j * w.BS);
+    uint16_t* kt = ring + slot * slot_elems;
+    uint16_t* vt = kt + w.BS * kKStride;
+    for (int idx = threadIdx.x; idx < 2 * nvalid * kChunks; idx += kThreads) {
+      const bool is_v = idx >= nvalid * kChunks;
+      const int rel = is_v ? idx - nvalid * kChunks : idx;
+      const int s = rel / kChunks, c8 = rel % kChunks;
+      const uint16_t* src = (is_v ? w.v_pool : w.k_pool) +
+          (((size_t)blk * w.BS + s) * w.Hkv + h) * D + c8 * 8;
+      uint16_t* dst = (is_v ? vt + s * D : kt + s * kKStride) + c8 * 8;
+      cp_async(reinterpret_cast<uint32_t*>(dst),
+               reinterpret_cast<const uint32_t*>(src), 4);
+    }
+    asm volatile("cp.async.commit_group;" ::);
+  };
+  if (j0 < j1) stage(first, j0, 0);
+  for (int j = j0; j < j1; ++j) {
+    const int i = j - j0;
+    if (j + 1 < j1) {
+      stage(trow[j + 1], j + 1, (i + 1) & 1);
+      asm volatile("cp.async.wait_group 1;" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::);
+    }
+    // the slot has landed, and q is in shared memory
+    __syncthreads();
+    const uint16_t* kt = ring + (i & 1) * slot_elems;
+    if (nr > 1)
+      flash_block_rows<DPL, GR>(kt, kt + w.BS * kKStride, qs,
+                                min(w.BS, len - j * w.BS), w.scale, warp,
+                                lane, nr, st);
+    else                            // one live row a warp (G*T <= 4)
+      flash_block_keys<DPL>(kt, kt + w.BS * kKStride, qs,
+                            min(w.BS, len - j * w.BS), w.scale, warp, lane,
+                            st);
+    __syncthreads();                     // the slot may be refilled
+  }
+  if (w.splits == 1) {
+    store_rows<DPL>(w, w.acc, w.m, w.l, b, h, lane, st);
+    return;
+  }
+  const size_t slab = (size_t)w.B * w.Hkv * w.G * w.T;
+  float* pm = w.ws + w.splits * slab * D;
+  store_rows<DPL>(w, w.ws + split * slab * D, pm + split * slab,
+                  pm + (w.splits + split) * slab, b, h, lane, st);
+  asm volatile("griddepcontrol.launch_dependents;");    // the merge may start
+}
+
 // Merge the partial states of `splits` table chunks, one thread per output
 // element, in chunk order: m = max m_s, l = sum l_s exp(m_s - m), acc =
 // sum acc_s exp(m_s - m). ws: acc (splits, rows, D), then m and l (splits,
@@ -691,17 +834,50 @@ decode_rows_kernel(Spec sp, Codec c, uint16_t* out, int rows, int dw) {
               upos + lr * c.keep, utot[lr], out + row * dw * 32 + 32 * wi);
 }
 
-cudaError_t launch_plain(const Walk& w, cudaStream_t stream) {
-  if (w.BS < 1 || w.BS > kMaxBS) return cudaErrorInvalidValue;
-  const dim3 grid(w.B, w.Hkv, (w.G * w.T + kQTile - 1) / kQTile);
-  if (grid.x == 0 || grid.z == 0) return cudaSuccess;
-  switch (w.D) {
-    case 32: paged_gqa_kernel<1><<<grid, kThreads, 0, stream>>>(w); break;
-    case 64: paged_gqa_kernel<2><<<grid, kThreads, 0, stream>>>(w); break;
-    case 128: paged_gqa_kernel<4><<<grid, kThreads, 0, stream>>>(w); break;
-    default: return cudaErrorInvalidValue;
+template <int DPL, int GR>
+cudaError_t launch_plain_g(const Walk& w, dim3 grid, size_t ring_bytes,
+                           cudaStream_t stream) {
+  static size_t granted = 0;
+  const size_t total = ring_bytes + sizeof(float) * kQTile * kMaxD;
+  if (total > 48 * 1024 && ring_bytes > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_gqa_kernel<DPL, GR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(ring_bytes));
+    if (e != cudaSuccess) return e;
+    granted = ring_bytes;
   }
+  paged_gqa_kernel<DPL, GR><<<grid, kThreads, ring_bytes, stream>>>(w);
   return cudaGetLastError();
+}
+
+// Lane groups of the flash step: as many rows a pass as the block's keys
+// leave lanes for (32, 16 or 8 key lanes).
+template <int DPL>
+cudaError_t launch_plain_d(const Walk& w, dim3 grid, size_t ring_bytes,
+                           cudaStream_t stream) {
+  if (w.BS > 16) return launch_plain_g<DPL, 1>(w, grid, ring_bytes, stream);
+  if (w.BS > 8) return launch_plain_g<DPL, 2>(w, grid, ring_bytes, stream);
+  return launch_plain_g<DPL, 4>(w, grid, ring_bytes, stream);
+}
+
+// The split-order merge of a split walk's partial states, launched as a
+// programmatic dependent of the walk.
+cudaError_t launch_merge(const Walk& w, cudaStream_t stream) {
+  const int rows = w.B * w.Hkv * w.G * w.T;
+  const size_t n = static_cast<size_t>(rows) * w.D;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>((n + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, merge_splits_kernel,
+                            static_cast<const float*>(w.ws), w.acc, w.m, w.l,
+                            w.splits, rows, w.D);
 }
 
 template <int DPL>
@@ -760,17 +936,41 @@ Spec make_spec(const void* bitmap, const void* signmant, const void* exp_words,
 
 }  // namespace
 
+// `bps` table blocks per CTA; with more than one split, the partial states
+// go to `ws` (acc (splits, B, Hkv, G, T, D), then m and l (splits, B, Hkv,
+// G, T)) and a second kernel merges them into (acc, m, l).
 extern "C" int paged_gqa_launch(const void* q, const void* k_pool,
                                 const void* v_pool, const void* table,
                                 const void* length, void* acc, void* m,
-                                void* l, int B, int T, int Hkv, int G, int D,
-                                int NB, int BS, int MB, float scale,
-                                void* stream) {
+                                void* l, void* ws, int B, int T, int Hkv,
+                                int G, int D, int NB, int BS, int MB, int bps,
+                                float scale, void* stream) {
+  if (BS < 1 || BS > kMaxBS || bps < 1 || (D != 32 && D != 64 && D != 128) ||
+      reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   Walk w = make_walk(q, table, length, acc, m, l, B, T, Hkv, G, D, NB, BS, MB,
                      scale);
   w.k_pool = static_cast<const uint16_t*>(k_pool);
   w.v_pool = static_cast<const uint16_t*>(v_pool);
-  return static_cast<int>(launch_plain(w, static_cast<cudaStream_t>(stream)));
+  w.bps = bps;
+  w.splits = MB > 0 ? (MB + bps - 1) / bps : 1;
+  if (w.splits > 1 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  w.ws = static_cast<float*>(ws);
+  if (B * Hkv * G * T == 0) return 0;
+  const dim3 grid(B * Hkv, w.splits, (G * T + kQTile - 1) / kQTile);
+  const size_t ring_bytes =
+      static_cast<size_t>(2) * BS * (kKStride + D) * sizeof(uint16_t);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (D) {
+    case 32: e = launch_plain_d<1>(w, grid, ring_bytes, s); break;
+    case 64: e = launch_plain_d<2>(w, grid, ring_bytes, s); break;
+    default: e = launch_plain_d<4>(w, grid, ring_bytes, s); break;
+  }
+  if (e != cudaSuccess || w.splits == 1) return static_cast<int>(e);
+  return static_cast<int>(launch_merge(w, s));
 }
 
 // `bps` table blocks per CTA; with more than one split, the partial states
@@ -818,20 +1018,7 @@ extern "C" int paged_gqa_packed_launch(
     default: e = launch_packed_d<4>(w, grid, ring_bytes, s); break;
   }
   if (e != cudaSuccess || w.splits == 1) return static_cast<int>(e);
-  const size_t n = static_cast<size_t>(rows) * D;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(static_cast<unsigned>((n + 255) / 256));
-  cfg.blockDim = dim3(256);
-  cfg.stream = s;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, merge_splits_kernel, static_cast<const float*>(ws),
-      static_cast<float*>(acc), static_cast<float*>(m),
-      static_cast<float*>(l), w.splits, rows, D));
+  return static_cast<int>(launch_merge(w, s));
 }
 
 extern "C" int decode_spec_rows_launch(const void* bitmap,

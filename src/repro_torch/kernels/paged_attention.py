@@ -226,7 +226,7 @@ def paged_gqa_packed_plain(q, k_spec, v_spec, table, length, book, *,
 
 
 # ---------------------------------------------------------------------------
-# The packed kernel's table split (flash decoding) and its plain version
+# The GQA kernels' table split (flash decoding) and its plain version
 # ---------------------------------------------------------------------------
 
 Q_TILE = 16                     # query rows (of G*T) per CTA
@@ -235,7 +235,7 @@ TARGET_CTAS = 4 * build.SM_COUNT
 
 def gqa_split_plan(b: int, hkv: int, g: int, t: int, mb: int
                    ) -> tuple[int, int]:
-    """(table blocks per CTA, splits) of the packed kernel's grid
+    """(table blocks per CTA, splits) of both GQA kernels' grid
     (B·Hkv, splits, ⌈G·T/16⌉): splits reach ``TARGET_CTAS`` where the
     table allows."""
     ctas = b * hkv * -(-(g * t) // Q_TILE)
@@ -244,7 +244,19 @@ def gqa_split_plan(b: int, hkv: int, g: int, t: int, mb: int
     return bps, -(-max(mb, 1) // bps)
 
 
+def plain_split_plan(b: int, hkv: int, g: int, t: int, mb: int
+                     ) -> tuple[int, int]:
+    """``paged_gqa``'s plan: :func:`gqa_split_plan` while the (row, kv head,
+    query tile) grid leaves SMs idle (the verify and draft-width passes);
+    one walk of the whole table per CTA, in order, once the query tiles
+    alone fill the card (a prefill chunk), so no merge reorders its sums."""
+    if b * hkv * -(-(g * t) // Q_TILE) >= build.SM_COUNT:
+        return max(mb, 1), 1
+    return gqa_split_plan(b, hkv, g, t, mb)
+
+
 _split_plan = functools.lru_cache(maxsize=1024)(gqa_split_plan)
+_plain_plan = functools.lru_cache(maxsize=1024)(plain_split_plan)
 
 
 def merge_flash_plain(parts):
@@ -263,22 +275,31 @@ def merge_flash_plain(parts):
     return acc, m, l
 
 
+def paged_gqa_split_plain(q, k_pool, v_pool, table, length, *,
+                          scale: float, blocks_per_split: int):
+    """The kernels' split walk in plain torch: each chunk of
+    ``blocks_per_split`` table columns walked into its own flash state
+    (the row's length shifted to the chunk), then merged in chunk order."""
+    bs = k_pool.shape[1]
+    length = length.to(torch.int32).reshape(-1).expand(q.shape[0])
+    parts = [paged_gqa_plain(q, k_pool, v_pool,
+                             table[:, j0:j0 + blocks_per_split],
+                             (length - j0 * bs).clamp_min(0), scale=scale)
+             for j0 in range(0, max(table.shape[1], 1), blocks_per_split)]
+    return merge_flash_plain(parts)
+
+
 def paged_gqa_packed_split_plain(q, k_spec, v_spec, table, length, book, *,
                                  d: int, keep: int, trunc: int,
                                  exp_bits: int, scale: float,
                                  blocks_per_split: int):
-    """The packed kernel's split walk in plain torch: each chunk of
-    ``blocks_per_split`` table columns walked into its own flash state
-    (the row's length shifted to the chunk), then merged in chunk order."""
+    """The packed kernel's split walk in plain torch, over the decoded
+    pools."""
     kw = dict(d=d, keep=keep, trunc=trunc, exp_bits=exp_bits)
-    kp = decode_spec_pool_plain(k_spec, book, **kw)
-    vp = decode_spec_pool_plain(v_spec, book, **kw)
-    bs = kp.shape[1]
-    length = length.to(torch.int32).reshape(-1).expand(q.shape[0])
-    parts = [paged_gqa_plain(q, kp, vp, table[:, j0:j0 + blocks_per_split],
-                             (length - j0 * bs).clamp_min(0), scale=scale)
-             for j0 in range(0, max(table.shape[1], 1), blocks_per_split)]
-    return merge_flash_plain(parts)
+    return paged_gqa_split_plain(
+        q, decode_spec_pool_plain(k_spec, book, **kw),
+        decode_spec_pool_plain(v_spec, book, **kw), table, length,
+        scale=scale, blocks_per_split=blocks_per_split)
 
 
 def merge_gqa_suffix(acc, m, l, q, suf_k, suf_v, suf_valid, *,
@@ -379,7 +400,9 @@ def paged_gqa(q, k_pool, v_pool, table, length, *, scale: float):
 
     q (B,T,Hkv,G,D) · table (B,MB) int32 · length (B,) int32. Returns
     unnormalised (acc, m, l). CPU tensors take :func:`paged_gqa_plain`;
-    CUDA tensors launch the kernel (``paged_gqa.launches``) or raise."""
+    CUDA tensors launch the kernel (``paged_gqa.launches``, one per call
+    with its split merge: the table split of :func:`plain_split_plan`) or
+    raise."""
     if q.device.type == "cpu":
         return paged_gqa_plain(q, k_pool, v_pool, table, length, scale=scale)
     if q.device.type != "cuda":
@@ -388,11 +411,20 @@ def paged_gqa(q, k_pool, v_pool, table, length, *, scale: float):
     dims, (acc, m, l) = _check_walk(q, table, length, nb, bs)
     build.check(k_pool, "k_pool", torch.bfloat16, (nb, bs, dims[2], dims[4]))
     build.check(v_pool, "v_pool", torch.bfloat16, (nb, bs, dims[2], dims[4]))
-    fn = build.entry("paged_gqa", "paged_gqa_launch", 8, 8, 1)
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the pools must start on a 16-byte boundary (the "
+                         "kernel copies their rows 16 bytes at a time)")
+    b, t, hkv, g = dims[:4]
+    bps, splits = _plain_plan(b, hkv, g, t, dims[7])
+    ws = None
+    if splits > 1:              # partial (acc, m, l) of every split
+        ws = torch.empty(splits * m.numel() * (dims[4] + 2),
+                         dtype=torch.float32, device=q.device)
+    fn = build.entry("paged_gqa", "paged_gqa_launch", 9, 9, 1)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              table.data_ptr(), length.data_ptr(), acc.data_ptr(),
-             m.data_ptr(), l.data_ptr(), *dims, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             m.data_ptr(), l.data_ptr(), 0 if ws is None else ws.data_ptr(),
+             *dims, bps, float(scale), build.stream(q))
     build.raise_on(err, "paged_gqa")
     paged_gqa.launches += 1
     return acc, m, l

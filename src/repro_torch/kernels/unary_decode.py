@@ -1,13 +1,14 @@
 """Cassandra-1 unary exponent decode (the paper's Alg. 1 parallel zero
-counter): the plain version and the wrapper around the hand-written CUDA
-kernel.
+counter) and the one-launch target-weight decode built on it: the plain
+versions and the wrappers around the hand-written CUDA kernels.
 
-The kernel (``csrc/unary_decode.cu``) replaces the TPU kernel
-``unary_decode`` (``src/repro/kernels/unary_decode.py``): a packed unary
-region (W uint32 words, little-endian bits) holds codes of ``rank`` zeros
-ended by a one; code j's rank is ``pos_j - pos_{j-1} - 1``, where
-``pos_j`` is the position of the (j+1)-th set bit (``W * 32`` when the
-region holds fewer) and ``pos_{-1} = -1``, clipped to [0, 31]. On a
+The kernels (``csrc/unary_decode.cu``) replace the TPU kernel
+``unary_decode`` (``src/repro/kernels/unary_decode.py``) and, for a whole
+packed weight, the reference's ``format.target_tensor`` chain around it.
+A packed unary region (W uint32 words, little-endian bits) holds codes of
+``rank`` zeros ended by a one; code j's rank is ``pos_j - pos_{j-1} - 1``,
+where ``pos_j`` is the position of the (j+1)-th set bit (``W * 32`` when
+the region holds fewer) and ``pos_{-1} = -1``, clipped to [0, 31]. On a
 region the encoder wrote in unary mode (exactly K set bits) this is the
 reference's ``coding.unary_decode_block`` bit for bit; delta-mode regions
 give ranks the caller discards (``core/coding.py::decode_exponents``).
@@ -17,7 +18,16 @@ give ranks the caller discards (``core/coding.py::decode_exponents``).
   the packed paged-attention kernel's plain decode).
 * ``unary_decode`` — the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches the kernel (counted in ``unary_decode.launches``)
-  or raises.
+  or raises. The KV views and the C-1 draft-view weight decode call it
+  through ``decode_exponents``.
+* ``target_decode`` — a packed Cassandra-1 weight's exact (target) view,
+  ``(n_out, n_in)`` bf16, in one launch (``target_decode.launches``): the
+  unary ranks through the codebook, the mode-1 deltas with their
+  corrections, sign and mantissas, the pruned values (coded or raw) and
+  the bitmap scatter. It takes CUDA tensors only: its plain version is
+  the chain ``format.target_weight_plain``, which ``format.target_weight``
+  runs for CPU tensors. ``target_plan`` is the launch's cut of the
+  weight's superblocks.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ from repro_torch.core import bitops
 from repro_torch.kernels import build
 
 MAX_RANK = 32
+MAX_K = 512                     # ranks per region: a superblock at most
+MAX_WORDS = 1023                # word counts are int16
 
 
 def ranks_from_bits(bits: torch.Tensor, k: int) -> torch.Tensor:
@@ -60,8 +72,9 @@ def unary_decode(words: torch.Tensor, k: int) -> torch.Tensor:
     if words.device.type != "cuda":
         raise ValueError(f"unary_decode: unsupported device {words.device}")
     lead, w = tuple(words.shape[:-1]), words.shape[-1]
-    if k < 1 or w < 1:
-        raise ValueError(f"unary_decode: k={k}, W={w} (both must be >= 1)")
+    if not 1 <= k <= MAX_K or not 1 <= w <= MAX_WORDS:
+        raise ValueError(f"unary_decode: k={k}, W={w} (the kernel takes "
+                         f"1 <= k <= {MAX_K}, 1 <= W <= {MAX_WORDS})")
     build.check(words, "words", torch.int32, (*lead, w))
     out = torch.empty((*lead, k), dtype=torch.int32, device=words.device)
     rows = words.numel() // w
@@ -69,10 +82,111 @@ def unary_decode(words: torch.Tensor, k: int) -> torch.Tensor:
         return out
     fn = build.entry("unary_decode", "unary_decode_launch", 2, 3)
     err = fn(words.data_ptr(), out.data_ptr(), rows, w, k,
-             torch.cuda.current_stream(words.device).cuda_stream)
+             build.stream(words))
     build.raise_on(err, "unary_decode")
     unary_decode.launches += 1
     return out
 
 
 unary_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# target_decode: a packed C-1 weight's exact view in one launch
+# ---------------------------------------------------------------------------
+
+TD_WARPS = 8                    # warps per CTA, one superblock each at a time
+TARGET_CTAS = 4 * build.SM_COUNT    # one wave: 4 CTAs an SM holds
+
+
+def target_plan(superblocks: int) -> tuple[int, int]:
+    """(superblocks per CTA, CTAs) for a weight of ``superblocks`` (n_out x
+    superblocks per column): runs of at least one superblock per warp,
+    ``TARGET_CTAS`` of them where the weight allows."""
+    chunk = max(TD_WARPS, -(-superblocks // TARGET_CTAS))
+    return chunk, -(-superblocks // chunk)
+
+
+def _leaf(tree: dict, name: str, dtype, shape: tuple):
+    """A checked leaf, copied when its address is not 4-byte aligned (the
+    kernel copies every region in 4-byte pieces at least)."""
+    t = tree[name]
+    build.check(t, name, dtype, shape)
+    return t if t.data_ptr() % 4 == 0 else t.clone()
+
+
+def _book(tree: dict, name: str):
+    t = tree.get(name)
+    if t is None or t.dtype != torch.uint8 or t.numel() < MAX_RANK \
+            or not t.is_contiguous() or not t.is_cuda:
+        raise ValueError(f"{name} must be a contiguous uint8 tensor of >= "
+                         f"{MAX_RANK} entries on the card")
+    return t
+
+
+def target_decode(spec: dict, verif: dict, cass,
+                  shape: tuple[int, int]) -> torch.Tensor:
+    """The exact (target) view of a packed Cassandra-1 weight of ``shape``
+    ``(n_in, n_out)``, as ``(n_out, n_in)`` bf16.
+
+    CUDA tensors launch the kernel (counted in ``target_decode.launches``)
+    or raise; other devices raise (``format.target_weight`` runs the plain
+    chain for CPU tensors)."""
+    if cass.variant != 1:
+        raise ValueError("target_decode decodes Cassandra-1 weights; a "
+                         "Cassandra-2 weight decodes through mx_decode")
+    dev = spec["bitmap"].device
+    if dev.type != "cuda":
+        raise ValueError(f"target_decode: unsupported device {dev} (the "
+                         f"plain chain is format.target_weight_plain)")
+    n_in, n_out = shape
+    block = cass.weight_block(n_in)
+    keep = cass.weight_keep(block)
+    trunc, eb, p = cass.weight_trunc, cass.exp_bits, block - keep
+    nb = n_in // block
+    if not 0 <= trunc <= 7 or not 1 <= eb <= 8 or keep % 8 or p % 8:
+        raise ValueError(f"target_decode: keep={keep}, block={block}, "
+                         f"trunc={trunc}, exp_bits={eb} outside what the "
+                         f"kernel decodes")
+    i32, u8 = torch.int32, torch.uint8
+
+    def words(k: int, width: int) -> tuple:
+        return n_out, nb, (k * width + 31) // 32
+
+    ptrs = [_leaf(spec, "bitmap", i32, (n_out, nb, block // 32)),
+            _leaf(spec, "signmant", i32, words(keep, 8 - trunc)),
+            _leaf(spec, "exp_words", i32, words(keep, eb)),
+            _leaf(spec, "exp_mode", u8, (n_out, nb)),
+            _leaf(spec, "exp_emax", u8, (n_out, nb)),
+            _book(spec, "codebook"),
+            _leaf(verif, "mant_lo", i32, words(keep, trunc)),
+            (_leaf(verif, "exp_corr", u8, (n_out, nb, keep // 2))
+             if "exp_corr" in verif else None)]
+    pruned = 0 if p == 0 else 2 if "pruned_raw" in verif else 1
+    if pruned == 2:
+        ptrs += [_leaf(verif, "pruned_raw", torch.int16, (n_out, nb, p)),
+                 None, None, None, None, None]
+    elif pruned == 1:
+        ptrs += [_leaf(verif, "pruned_signmant", u8, (n_out, nb, p)),
+                 _leaf(verif, "pruned_exp_words", i32, words(p, eb)),
+                 _leaf(verif, "pruned_exp_mode", u8, (n_out, nb)),
+                 _leaf(verif, "pruned_exp_emax", u8, (n_out, nb)),
+                 _book(verif, "pruned_codebook"),
+                 (_leaf(verif, "pruned_exp_corr", u8, (n_out, nb, p // 2))
+                  if "pruned_exp_corr" in verif else None)]
+    else:
+        ptrs += [None] * 6
+    out = torch.empty((n_out, n_in), dtype=torch.bfloat16, device=dev)
+    if out.numel() == 0:
+        return out
+    chunk, _ = target_plan(n_out * nb)
+    fn = build.entry("unary_decode", "target_decode_launch", 15, 8)
+    err = fn(*[0 if t is None else t.data_ptr() for t in ptrs],
+             out.data_ptr(), n_out, nb, block, keep, trunc, eb, pruned,
+             chunk, build.stream(out))
+    build.raise_on(err, "target_decode")
+    target_decode.launches += 1
+    return out
+
+
+target_decode.launches = 0

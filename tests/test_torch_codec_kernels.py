@@ -16,6 +16,11 @@ takes the side its callers need:
 * ``kv_topk`` on a kept -0.0: the Pallas kernel's one-hot product returns
   +0.0; the port keeps the bits, as the oracle and the serving selection
   (``select_topk_blocked``) do.
+
+``target_decode``'s plain version, the chain ``format.target_weight_plain``
+that ``format.target_weight`` runs for CPU tensors, is held bit for bit to the reference's
+``target_weight`` on weights with mode-1 superblocks (corrections kept or
+trimmed) and with raw pruned values.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +29,9 @@ import torch
 
 import torch_parity as TP
 from repro.core import bitops as jbit, coding as jcod, mx as jmx
-from repro.core import pruning as jprune
+from repro.core import format as jfmt, pruning as jprune
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.core import coding
+from repro_torch.core import coding, format as fmt
 from repro_torch.kernels import kv_topk as KT, mx_decode as MXD
 from repro_torch.kernels import unary_decode as UD
 
@@ -198,3 +203,63 @@ def test_kv_topk_nan_rows_fill_with_zeros():
     np.testing.assert_array_equal(TP.bits(out["pruned"][0, :13]),
                                   vb[0, ~mask[0]])
     np.testing.assert_array_equal(TP.bits(out["pruned"][0, 13:]), 0)
+
+
+# ---------------------------------------------------------------------------
+# target_decode's plain version: the reference's target_weight chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,outliers,raw,trunc", [
+    ((512, 48), True, False, 4),    # mode 1 on both sides, corrections kept
+    ((256, 40), False, False, 4),   # every region unary: corrections trimmed
+    ((512, 32), True, True, 4),     # raw pruned values
+    ((1024, 24), True, False, 2),   # 6-bit sign|mantissa codes
+    ((128, 40), True, False, 7)])   # 1-bit codes, 128-value superblocks
+def test_target_decode_plain_equals_reference(shape, outliers, raw, trunc):
+    rng = np.random.default_rng(sum(shape) + trunc)
+    w = (TP.outlier_bf16_np(rng, shape) if outliers
+         else TP.rand_bf16_np(rng, shape))
+    jc = jfmt.CassandraConfig(variant=1, weight_trunc=trunc)
+    pc = fmt.CassandraConfig(variant=1, weight_trunc=trunc)
+    block = pc.weight_block(shape[0])
+    keep = pc.weight_keep(block)
+    wt = np.ascontiguousarray(w.T)
+    jspec, jverif = jfmt._trim_lossless(*jfmt.format_tensor(
+        jnp.asarray(wt), jnp.abs(jnp.asarray(wt, jnp.float32)), jc, block,
+        keep, jc.mx_group, trunc, pruned_raw=raw), 1)
+    pt = TP.to_port(wt)
+    spec, verif = fmt._trim_lossless(*fmt.format_tensor(
+        pt, pt.float().abs(), pc, block, keep, pc.mx_group, trunc,
+        pruned_raw=raw), 1)
+    TP.assert_bitwise(spec, jspec)
+    TP.assert_bitwise(verif, jverif)
+    assert bool(spec["exp_mode"].any()) == outliers
+    assert ("exp_corr" in verif) == outliers
+    assert ("pruned_raw" in verif) == raw
+    if outliers and not raw:
+        assert verif["pruned_exp_mode"].any() and "pruned_exp_corr" in verif
+    ref = jfmt.target_weight(jspec, jverif, jc, shape)
+    before = UD.target_decode.launches
+    out = fmt.target_weight(spec, verif, pc, shape)
+    assert UD.target_decode.launches == before     # CPU: the plain chain
+    assert out.shape == shape
+    TP.assert_bitwise(out, ref)
+    TP.assert_bitwise(fmt.target_weight_plain(spec, verif, pc, shape), ref)
+    TP.assert_bitwise(out, w)                                # lossless
+
+
+def test_target_decode_refuses_cassandra_2():
+    from repro_torch.kernels import unary_decode as UDK
+    rng = np.random.default_rng(2)
+    w = TP.to_port(TP.rand_bf16_np(rng, (256, 16)))
+    c2 = fmt.CassandraConfig(variant=2)
+    spec, verif = fmt.format_weight(w, None, c2)
+    with pytest.raises(ValueError, match="Cassandra-1"):
+        UDK.target_decode(spec, verif, c2, (256, 16))
+    c1 = fmt.CassandraConfig(variant=1)
+    spec1, verif1 = fmt.format_weight(w, None, c1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        UDK.target_decode({k: v.to("meta") for k, v in spec1.items()},
+                          verif1, c1, (256, 16))
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        UDK.target_decode(spec1, verif1, c1, (256, 16))

@@ -35,15 +35,6 @@ def _t(a):
     return TP.to_port(a)
 
 
-def _outlier_weight(rng, shape):
-    """bf16 (in, out) weight whose first columns span ~2^±6 more per value,
-    so their superblocks overflow the unary region (mode 1) while staying
-    inside the 4-bit correction's exact range."""
-    w = rng.standard_normal(shape).astype(np.float32)
-    w[:, :4] *= np.exp2(rng.integers(-6, 7, size=(shape[0], 4)))
-    return np.array(jnp.asarray(w, jnp.bfloat16))
-
-
 def test_config_fields_match():
     for smoke in (False, True):
         ref = dataclasses.asdict(jax_get_config("llama3-8b", smoke=smoke))
@@ -160,7 +151,7 @@ def test_exponent_region_codec(corr_bits):
                                             ((1024, 40), True)])
 def test_format_weight_leaves_and_decodes(shape, outliers):
     rng = np.random.default_rng(shape[1])
-    w = (_outlier_weight(rng, shape) if outliers
+    w = (TP.outlier_bf16_np(rng, shape) if outliers
          else TP.rand_bf16_np(rng, shape))
     jspec_, jverif = jfmt.format_weight(jnp.asarray(w), None, JCASS)
     spec, verif = fmt.format_weight(_t(w), None, CASS)
@@ -178,7 +169,7 @@ def test_format_weight_leaves_and_decodes(shape, outliers):
 
 def test_target_weight_row_chunks(monkeypatch):
     rng = np.random.default_rng(7)
-    w = _outlier_weight(rng, (256, 80))
+    w = TP.outlier_bf16_np(rng, (256, 80))
     spec, verif = fmt.format_weight(_t(w), None, CASS)
     monkeypatch.setattr(fmt, "ROW_CHUNK", 24)      # ragged last chunk
     TP.assert_bitwise(fmt.target_weight(spec, verif, CASS, (256, 80)), w)

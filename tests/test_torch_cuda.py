@@ -42,9 +42,11 @@ def fresh_plans():
     from repro_torch.kernels import paged_attention as PA
     DM._launch_shape.cache_clear()
     PA._split_plan.cache_clear()
+    PA._plain_plan.cache_clear()
     yield
     DM._launch_shape.cache_clear()
     PA._split_plan.cache_clear()
+    PA._plain_plan.cache_clear()
 
 
 def _operands(shape, card, trunc=4):
@@ -339,6 +341,53 @@ def test_paged_gqa_packed_splits_on_card(card, t, split, monkeypatch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("split", [None, 1, 2, 6])
+@pytest.mark.parametrize("d,bs", [(64, 4), (128, 16)])
+def test_paged_gqa_splits_on_card(card, t, split, d, bs, monkeypatch,
+                                  fresh_plans):
+    """The flash-decoding split of the plain-pool kernel, as the packed
+    kernel's test holds it: rows shorter than one split, a row that ends
+    mid-block, an empty row, out-of-range table entries, NaN in every pool
+    row no valid position reads; (acc, m, l) within rtol 1e-4 / atol 1e-5
+    of the plain walk and of the split walk in plain torch, one launch
+    counted per call, two launches equal bit for bit."""
+    from repro_torch.kernels import paged_attention as PA
+    q, k, v, _, _, table, length, _, _ = _paged_inputs(
+        card, d=d, t=t, bs=bs, seed=60 + t + d)
+    b, _, hkv, g = q.shape[:4]
+    if split is not None:
+        monkeypatch.setattr(PA, "TARGET_CTAS",
+                            split * b * hkv * -(-(g * t) // PA.Q_TILE))
+    bps, splits = PA._plain_plan(b, hkv, g, t, table.shape[1])
+    assert split is None or splits == split
+    live = torch.zeros(k.shape[:2], dtype=torch.bool)
+    for row, n in enumerate(length.tolist()):
+        for j, blk in enumerate(table[row].tolist()):
+            c = min(bs, n - j * bs)
+            if c > 0:
+                live[blk if 0 <= blk < k.shape[0] else 0, :c] = True
+    dead = ~live.to(card)[:, :, None, None]
+    k, v = (torch.where(dead, float("nan"), x).to(torch.bfloat16)
+            for x in (k, v))
+    scale = d ** -0.5
+    before = PA.paged_gqa.launches
+    got = PA.paged_gqa(q, k, v, table, length, scale=scale)
+    again = PA.paged_gqa(q, k, v, table, length, scale=scale)
+    want = PA.paged_gqa_plain(q, k, v, table, length, scale=scale)
+    want_s = PA.paged_gqa_split_plain(q, k, v, table, length, scale=scale,
+                                      blocks_per_split=bps)
+    torch.cuda.synchronize()
+    assert PA.paged_gqa.launches == before + 2
+    for a, a2, c, cs in zip(got, again, want, want_s):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a, cs, rtol=1e-4, atol=1e-5)
+    assert (got[0][1] == 0).all() and (got[1][1] == PA.NEG_INF).all()
+
+
+@pytest.mark.cuda
 def test_paged_wrappers_reject_what_the_kernels_do_not_take(card):
     from repro_torch.kernels import paged_attention as PA
     q, k, v, ks, vs, table, length, eor, kw = _paged_inputs(
@@ -352,6 +401,11 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         PA.paged_gqa(q[..., :48].contiguous(), k[..., :48].contiguous(),
                      v[..., :48].contiguous(), table, length, scale=1.0)
+    off = torch.empty(k.numel() + 4, dtype=k.dtype, device=card)
+    off = off[4:].view(k.shape)                     # 8 bytes off 16
+    off.copy_(k)
+    with pytest.raises(ValueError, match="16-byte"):
+        PA.paged_gqa(q, off, v, table, length, scale=1.0)
     with pytest.raises(ValueError, match="book"):
         PA.paged_gqa_packed(q, ks, vs, table, length, eor.int(), scale=1.0,
                             **kw)
@@ -685,3 +739,154 @@ def test_c2_engine_and_scheduler_on_card(card):
     with pytest.raises(ValueError, match="exp_words"):
         Scheduler(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3),
                   num_slots=3, s_max=36, paged=True, attn_kernel="on")
+
+
+# ---------------------------------------------------------------------------
+# target_decode: a packed C-1 weight's exact view in one launch
+# ---------------------------------------------------------------------------
+
+def _target_weight(shape, card, *, trunc=4, outliers=True, raw=False,
+                   prune=0.4):
+    """A C-1 weight of ``shape`` packed on the card: with ``outliers`` the
+    first columns span 2^±6 more per value, so their superblocks (kept and
+    pruned) take mode 1 and keep their corrections; ``raw`` stores the
+    pruned values as raw 16-bit patterns."""
+    from repro_torch.core import format as fmt
+    cass = CassandraConfig(variant=1, weight_trunc=trunc, weight_prune=prune)
+    gen = torch.Generator(device=card).manual_seed(shape[0] + shape[1] + trunc)
+    w = torch.randn(shape, generator=gen, device=card)
+    if outliers:
+        w[:, :4] *= torch.exp2(torch.randint(-6, 7, (shape[0], 4),
+                                             generator=gen, device=card)
+                               .float())
+    w = w.to(torch.bfloat16)
+    block = cass.weight_block(shape[0])
+    wt = w.T.contiguous()
+    spec, verif = fmt.format_tensor(wt, wt.float().abs(), cass, block,
+                                    cass.weight_keep(block), cass.mx_group,
+                                    trunc, pruned_raw=raw)
+    spec, verif = fmt._trim_lossless(spec, verif, 1)
+    return w, spec, verif, cass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out", [
+    (1536, 1000), (4096, 1024), (7168, 576), (14336, 520), (18432, 256),
+    (4096, 128256)])       # lm_head's width
+def test_target_decode_bitwise_on_card(card, n_in, n_out):
+    """Bit for bit the plain chain (and the weight itself: the format is
+    lossless), mode-1 superblocks on both sides with their corrections;
+    one launch counted per call, two launches equal bit for bit."""
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import unary_decode as UD
+    w, spec, verif, cass = _target_weight((n_in, n_out), card)
+    assert spec["exp_mode"].any() and "exp_corr" in verif
+    assert verif["pruned_exp_mode"].any() and "pruned_exp_corr" in verif
+    before = UD.target_decode.launches
+    got = UD.target_decode(spec, verif, cass, (n_in, n_out))
+    again = UD.target_decode(spec, verif, cass, (n_in, n_out))
+    want = fmt.target_weight_plain(spec, verif, cass, (n_in, n_out)).T
+    torch.cuda.synchronize()
+    assert UD.target_decode.launches == before + 2
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(got.T.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,trunc,outliers,raw,prune", [
+    (512, 0, True, False, 0.4), (512, 2, True, False, 0.4),
+    (512, 7, True, False, 0.4),          # 8-, 6-, 1-bit sign|mantissa codes
+    (512, 4, False, False, 0.4),         # every region unary, corr trimmed
+    (1024, 4, True, True, 0.4),          # raw pruned values
+    (512, 4, True, False, 0.0),          # nothing pruned (keep == block)
+    (256, 4, True, False, 0.4), (128, 4, True, False, 0.4),
+    (64, 4, True, False, 0.4), (32, 4, True, False, 0.5)])  # small blocks
+def test_target_decode_formats_on_card(card, n_in, trunc, outliers, raw,
+                                       prune):
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import unary_decode as UD
+    shape = (n_in, 200)
+    w, spec, verif, cass = _target_weight(shape, card, trunc=trunc,
+                                          outliers=outliers, raw=raw,
+                                          prune=prune)
+    assert ("exp_corr" in verif) == outliers
+    assert ("pruned_raw" in verif) == raw
+    got = UD.target_decode(spec, verif, cass, shape)
+    want = fmt.target_weight_plain(spec, verif, cass, shape).T
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if prune > 0:
+        assert torch.equal(got.T.view(torch.int16), w.view(torch.int16))
+    # format.target_weight dispatches the kernel for C-1 on the card
+    before = UD.target_decode.launches
+    tw = fmt.target_weight(spec, verif, cass, shape)
+    assert UD.target_decode.launches == before + 1
+    assert torch.equal(tw.view(torch.int16), want.T.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_target_decode_on_arbitrary_words_on_card(card):
+    """Arbitrary leaves (regions with fewer and more than K ones, random
+    bitmaps, escape codes without corrections) and misaligned leaf
+    slices: bit for bit the plain chain."""
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import unary_decode as UD
+    _, spec, verif, cass = _target_weight((1024, 300), card)
+    gen = torch.Generator(device=card).manual_seed(5)
+
+    def scramble(tree):
+        out = {}
+        for k, v in tree.items():
+            if k.endswith("codebook"):
+                out[k] = v
+            elif v.dtype == torch.int32:
+                out[k] = torch.randint(-2 ** 31, 2 ** 31 - 1, v.shape,
+                                       generator=gen, device=card,
+                                       dtype=torch.int32)
+            else:
+                out[k] = torch.randint(0, 256, v.shape, generator=gen,
+                                       device=card).to(v.dtype)
+        return out
+
+    spec, verif = scramble(spec), scramble(verif)
+    for tree in (spec, verif):
+        for k in [k for k in tree if k.endswith("mode")]:
+            tree[k] = tree[k] & 1
+    for drop in ((), ("exp_corr", "pruned_exp_corr")):
+        v = {k: x for k, x in verif.items() if k not in drop}
+        got = UD.target_decode(spec, v, cass, (1024, 300))
+        want = fmt.target_weight_plain(spec, v, cass, (1024, 300)).T
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # a leaf one byte off a 4-byte boundary is copied first
+    book = torch.zeros(33, dtype=torch.uint8, device=card)
+    book[1:] = spec["codebook"]
+    mode = torch.zeros(spec["exp_mode"].numel() + 1, dtype=torch.uint8,
+                       device=card)
+    mode[1:] = spec["exp_mode"].reshape(-1)
+    off = dict(spec, codebook=book[1:],
+               exp_mode=mode[1:].reshape(spec["exp_mode"].shape))
+    got = UD.target_decode(off, verif, cass, (1024, 300))
+    want = fmt.target_weight_plain(spec, verif, cass, (1024, 300)).T
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_target_decode_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import unary_decode as UD
+    _, spec, verif, cass = _target_weight((512, 40), card)
+    with pytest.raises(TypeError, match="dtype"):
+        UD.target_decode(dict(spec, signmant=spec["signmant"].long()), verif,
+                         cass, (512, 40))
+    with pytest.raises(ValueError, match="is on cpu"):
+        UD.target_decode(spec, dict(verif, mant_lo=verif["mant_lo"].cpu()),
+                         cass, (512, 40))
+    with pytest.raises(ValueError, match="shape"):
+        UD.target_decode(spec, verif, cass, (512, 48))
+    with pytest.raises(ValueError, match="codebook"):
+        UD.target_decode(dict(spec, codebook=spec["codebook"][:16]), verif,
+                         cass, (512, 40))
+    with pytest.raises(ValueError, match="Cassandra-1"):
+        UD.target_decode(spec, verif, CassandraConfig(variant=2),
+                         (512, 40))

@@ -231,3 +231,86 @@ def test_gqa_split_plan_covers_the_table(b, hkv, g, t, mb, monkeypatch):
                        * max(mb, 1)) // 2
     monkeypatch.setattr(PA, "TARGET_CTAS", 1)
     assert PA.gqa_split_plan(b, hkv, g, t, mb)[1] == 1
+
+
+# ---------------------------------------------------------------------------
+# paged_gqa: the same table split over plain bf16 pools
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("split", [None, 2, MB])
+def test_paged_gqa_split_walk_matches_unsplit_and_reference(t, d, split,
+                                                            monkeypatch):
+    """The plain-pool kernel's split (the main path's plan for these
+    shapes, and plans forced to 2 and MB splits by the CTA target), in
+    plain torch, against the unsplit walk and the JAX reference's
+    ``paged_gqa``: within rtol 1e-4 / atol 1e-5; the empty row stays
+    initial."""
+    rng = np.random.default_rng(30 + t + d)
+    q = TP.rand_bf16_np(rng, (B, t, HKV, G, d))
+    k = TP.rand_bf16_np(rng, (NB, BS, HKV, d))
+    v = TP.rand_bf16_np(rng, (NB, BS, HKV, d))
+    tbl = rng.integers(1, NB, (B, MB)).astype(np.int32)
+    tbl[0, 4], tbl[2, 1], tbl[3, 2] = -3, NB + 7, 0
+    if split is not None:
+        monkeypatch.setattr(PA, "TARGET_CTAS",
+                            split * B * HKV * -(-(G * t) // PA.Q_TILE))
+    bps, splits = PA.plain_split_plan(B, HKV, G, t, MB)
+    assert split is None or splits == split
+    args = (TP.to_port(q), TP.to_port(k), TP.to_port(v),
+            torch.from_numpy(tbl), torch.from_numpy(LENGTHS))
+    scale = d ** -0.5
+    out = PA.paged_gqa_split_plain(*args, scale=scale, blocks_per_split=bps)
+    _close(out, PA.paged_gqa_plain(*args, scale=scale))
+    ref = JPA.paged_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(tbl), jnp.asarray(LENGTHS), scale=scale,
+                        impl="jnp")
+    _close(out, ref)
+    assert (out[0][1] == 0).all() and (out[1][1] == PA.NEG_INF).all()
+
+
+# ---------------------------------------------------------------------------
+# target_decode: the launch plan over a weight's superblocks
+# ---------------------------------------------------------------------------
+
+def _superblocks(shape):
+    n_in, n_out = shape
+    return n_out * (n_in // CassandraConfig().weight_block(n_in))
+
+
+@pytest.mark.parametrize("shape", MAIN_SHAPES + RAGGED + [(512, 512)])
+@pytest.mark.parametrize("target", [None, 1, 7, 10 ** 9])
+def test_target_plan_covers_each_superblock_once(shape, target,
+                                                 monkeypatch):
+    """Every superblock of the weight decoded by exactly one warp, under
+    the main path's plan (one wave of ``TARGET_CTAS``, each warp a
+    superblock at least) and plans forced by the CTA target: CTA c owns
+    superblocks [c * chunk, (c + 1) * chunk), so the runs tile the weight
+    when the last one ends at or past it and the one before inside it."""
+    from repro_torch.kernels import unary_decode as UD
+    if target is not None:
+        monkeypatch.setattr(UD, "TARGET_CTAS", target)
+    s = _superblocks(shape)
+    chunk, ctas = UD.target_plan(s)
+    assert chunk >= UD.TD_WARPS and (ctas - 1) * chunk < s <= ctas * chunk
+    assert ctas <= max(UD.TARGET_CTAS, 1) or chunk == UD.TD_WARPS
+    if target is None and s >= UD.TARGET_CTAS * UD.TD_WARPS:
+        assert ctas == -(-s // -(-s // UD.TARGET_CTAS))   # one wave
+
+
+@pytest.mark.parametrize("b,hkv,g,t,mb,split", [
+    (4, 8, 4, 4, 11, True),     # the Llama verify pass: 32 CTAs unsplit
+    (4, 8, 4, 1, 257, True),    # one row a warp at 4 x 4096 tokens
+    (4, 8, 4, 32, 11, False),   # a 32-token prefill chunk: 256 tiles
+    (4, 8, 4, 32, 257, False), (1, 2, 2, 32, 6, True)])
+def test_plain_split_plan_splits_only_an_idle_grid(b, hkv, g, t, mb, split):
+    """``paged_gqa`` splits the table only while the query tiles leave SMs
+    idle; once they fill the card every CTA walks its whole table."""
+    bps, splits = PA.plain_split_plan(b, hkv, g, t, mb)
+    tiles = b * hkv * -(-(g * t) // PA.Q_TILE)
+    assert (splits > 1) == split
+    if tiles >= PA.build.SM_COUNT:
+        assert (bps, splits) == (mb, 1)
+    else:
+        assert (bps, splits) == PA.gqa_split_plan(b, hkv, g, t, mb)

@@ -23,6 +23,16 @@ def rand_bf16_np(rng: np.random.Generator, shape, scale=1.0) -> np.ndarray:
     return np.array(jnp.asarray(x, jnp.bfloat16))
 
 
+def outlier_bf16_np(rng: np.random.Generator, shape) -> np.ndarray:
+    """bf16 (in, out) weight whose first columns span ~2^±6 more per value,
+    so their superblocks overflow the unary region (mode 1), kept and
+    pruned side alike, while staying inside the 4-bit correction's exact
+    range."""
+    w = rng.standard_normal(shape).astype(np.float32)
+    w[:, :4] *= np.exp2(rng.integers(-6, 7, size=(shape[0], 4)))
+    return np.array(jnp.asarray(w, jnp.bfloat16))
+
+
 def to_port(tree, device="cpu"):
     """A JAX (or numpy) tree as the port's tensor tree."""
     return bridge.params_from_numpy(jax.device_get(tree), device)
