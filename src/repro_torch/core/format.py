@@ -19,8 +19,12 @@ Cassandra-2 (``variant=2``) keeps the kept values as MX lanes
 (``core/mx.py``): the speculation side holds the sign and the top
 ``mx_draft_bits`` of each 16-bit container plus the shared exponents, the
 verification side the container's low bits and the raw pruned values; the
-target view is exact within an MX group's 2^8 exponent range. Both views
-decode through ``kernels/mx_decode.py`` (the CUDA kernel on the card).
+target view is exact within an MX group's 2^8 exponent range. On the card
+each C-2 view of a weight (``draft_weight``, ``target_weight``) or of a KV
+store (``serving/kvcache.py``) is one launch of ``kernels/mx_decode.py``'s
+``mx_view``; ``draft_tensor`` / ``target_tensor`` over the leaves (through
+``mx_decode``, the plain MX decode on the CPU) are the chain it is held
+to, and what CPU tensors run.
 
 Selections that span the whole vector with magnitude scores (the KV
 encode) run through ``kernels/kv_topk.py``, and the unary exponent decode
@@ -284,12 +288,13 @@ def _trim_lossless(spec: dict, verif: dict, variant: int):
     return spec, verif
 
 
-# Row chunk for the plain whole-weight decodes (every C-1 and C-2 decode on
-# the CPU, C-2's views and the C-1 draft view on the card; the C-1 target
-# view on the card is one ``target_decode`` launch, with no transients): a
-# chunk of output columns of a packed weight decodes with transients of a
-# few hundred MB (C-1) to about a GB (C-2's 12-bit low containers) at the
-# paper defaults; lm_head (128256 columns) is decoded in 8 such pieces.
+# Row chunk for the plain whole-weight decodes (every decode on the CPU and
+# the C-1 draft view, MLA's kv_b, on the card; on the card the C-1 target
+# view is one ``target_decode`` launch and each C-2 view one ``mx_view``
+# launch, with no transients): a chunk of output columns of a packed weight
+# decodes with transients of a few hundred MB (C-1) to about a GB (C-2's
+# 12-bit low containers) at the paper defaults; lm_head (128256 columns) is
+# decoded in 8 such pieces.
 ROW_CHUNK = 16384
 _SHARED_LEAVES = ("codebook", "pruned_codebook")
 
@@ -327,8 +332,29 @@ def _by_rows(decode, trees: tuple, shape: tuple[int, int]) -> torch.Tensor:
     return wt.T
 
 
+def _mx_weight_view(spec: dict, verif, cfg: CassandraConfig,
+                    shape: tuple[int, int], dtype) -> torch.Tensor:
+    """A C-2 weight's draft (``verif`` None) or target view as (out, in)
+    ``dtype``: one ``mx_view`` launch on CUDA tensors."""
+    block = cfg.weight_block(shape[0])
+    return MXD.mx_view(spec, verif, block=block, keep=cfg.weight_keep(block),
+                       group=cfg.mx_group, draft_bits=cfg.mx_draft_bits,
+                       dtype=dtype)
+
+
 def draft_weight(spec: dict, cfg: CassandraConfig,
                  shape: tuple[int, int]) -> torch.Tensor:
+    """The (in, out) draft view. Cassandra-2 on CUDA tensors is one
+    ``mx_view`` launch; Cassandra-1, and every weight on the CPU, the
+    plain chain :func:`draft_weight_plain`."""
+    if cfg.variant != 1 and spec["bitmap"].is_cuda:
+        return _mx_weight_view(spec, None, cfg, shape, torch.bfloat16).T
+    return draft_weight_plain(spec, cfg, shape)
+
+
+def draft_weight_plain(spec: dict, cfg: CassandraConfig,
+                       shape: tuple[int, int]) -> torch.Tensor:
+    """``draft_tensor`` over the weight, ``ROW_CHUNK`` columns at a time."""
     block = cfg.weight_block(shape[0])
     keep = cfg.weight_keep(block)
     return _by_rows(lambda s: draft_tensor(s, cfg, block, keep, cfg.mx_group,
@@ -336,14 +362,25 @@ def draft_weight(spec: dict, cfg: CassandraConfig,
                     (spec,), shape)
 
 
+def draft_weight_f32(spec: dict, cfg: CassandraConfig,
+                     shape: tuple[int, int]) -> torch.Tensor:
+    """A C-2 draft view widened to f32, (in, out), the operand of the draft
+    product: on CUDA tensors ``mx_view`` writes it in one launch (bit for
+    bit the bf16 view widened)."""
+    if spec["bitmap"].is_cuda:
+        return _mx_weight_view(spec, None, cfg, shape, torch.float32).T
+    return draft_weight_plain(spec, cfg, shape).to(torch.float32)
+
+
 def target_weight(spec: dict, verif: dict, cfg: CassandraConfig,
                   shape: tuple[int, int]) -> torch.Tensor:
-    """The exact (in, out) weight. Cassandra-1 on CUDA tensors is one
-    ``target_decode`` launch; Cassandra-2, and every weight on the CPU,
-    the plain chain :func:`target_weight_plain` (C-2's through
-    ``mx_decode``)."""
-    if cfg.variant == 1 and spec["bitmap"].is_cuda:
-        return UD.target_decode(spec, verif, cfg, shape).T
+    """The exact (in, out) weight. On CUDA tensors Cassandra-1 is one
+    ``target_decode`` launch and Cassandra-2 one ``mx_view`` launch; every
+    weight on the CPU runs the plain chain :func:`target_weight_plain`."""
+    if spec["bitmap"].is_cuda:
+        if cfg.variant == 1:
+            return UD.target_decode(spec, verif, cfg, shape).T
+        return _mx_weight_view(spec, verif, cfg, shape, torch.bfloat16).T
     return target_weight_plain(spec, verif, cfg, shape)
 
 

@@ -53,9 +53,18 @@ def select_topk_blocked(values: torch.Tensor, scores: torch.Tensor,
 
 def desparsify(bitmap: torch.Tensor, kept: torch.Tensor, block: int,
                pruned: torch.Tensor | None = None) -> torch.Tensor:
-    """Scatter kept (and optionally pruned) values back to (..., NB*block)."""
+    """Scatter kept (and optionally pruned) values back to (..., NB*block).
+
+    bf16 values move as their 16-bit patterns: PyTorch's vectorised CPU
+    paths rewrite a bf16 NaN's payload, a gather and a select of int16
+    never do (the raw pruned values of Cassandra-2 and of the online KV
+    encoder may hold any pattern)."""
     if pruned is not None and pruned.shape[-1] == 0:
         pruned = None
+    if kept.dtype == torch.bfloat16:
+        return desparsify(bitmap, kept.view(torch.int16), block,
+                          None if pruned is None
+                          else pruned.view(torch.int16)).view(torch.bfloat16)
     mask = bitops.unpack_bits(bitmap, block)              # (..., NB, block)
     rank = torch.cumsum(mask, dim=-1, dtype=torch.int32) - 1
     keep = kept.shape[-1]

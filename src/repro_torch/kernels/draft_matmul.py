@@ -30,8 +30,8 @@ import functools
 import torch
 
 from repro_torch.core import bitops, coding, pruning
-from repro_torch.core.format import (ROW_CHUNK, CassandraConfig, draft_weight,
-                                     slice_rows)
+from repro_torch.core.format import (ROW_CHUNK, CassandraConfig,
+                                     draft_weight_f32, slice_rows)
 from repro_torch.kernels import build
 
 ESC = 7
@@ -66,7 +66,7 @@ def prepare_draft_operands(spec: dict, cass: CassandraConfig,
     if cass.variant != 1:
         raise ValueError("the draft kernel reads Cassandra-1 operands; a "
                          "Cassandra-2 weight decodes through "
-                         "format.draft_weight (packed_matmul)")
+                         "format.draft_weight_f32 (packed_matmul)")
     n_in, n_out = shape
     keep = cass.weight_keep(cass.weight_block(n_in))
     parts = [_prepare_rows(slice_rows(spec, lo, min(lo + ROW_CHUNK, n_out)),
@@ -258,12 +258,13 @@ def packed_matmul(x: torch.Tensor, w: dict,
     ``x.dtype`` (the reference's ``ops.draft_matmul``).
 
     Cassandra-1 runs the draft kernel on the prepared operands.
-    Cassandra-2, as in the reference, decodes the draft weight
-    (``format.draft_weight``, through the MX decode kernel) and multiplies
-    in f32 outside any kernel."""
+    Cassandra-2, as in the reference, decodes the draft weight and
+    multiplies in f32 outside any kernel: on CUDA tensors the f32 view is
+    one ``mx_view`` launch (``format.draft_weight_f32``), with no bf16 view
+    and no cast pass."""
     if cass.variant != 1:
-        wd = draft_weight(w["spec"], cass, packed_shape(w))
-        y = torch.matmul(x.to(torch.float32), wd.to(torch.float32))
+        wd = draft_weight_f32(w["spec"], cass, packed_shape(w))
+        y = torch.matmul(x.to(torch.float32), wd)
         return y.to(x.dtype)
     if "kernel" not in w:
         raise ValueError("packed weight has no prepared kernel operands: "

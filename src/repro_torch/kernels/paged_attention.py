@@ -17,8 +17,10 @@ is never gathered:
   memory (the paper's DRAM→L2 decoder module);
 * ``paged_mla`` — MLA in latent space (absorbed math) over bf16 pools of
   the latent ``c`` ``(NB, BS, L)`` and the rope key ``kr`` ``(NB, BS, R)``:
-  ``c`` is both the key and the value operand. A packed MLA cache is
-  decoded to its view before the walk (``models/model.py``).
+  ``c`` is both the key and the value operand, its products on the tensor
+  cores at f32 grade and its table cut by ``mla_split_plan`` while the
+  grid leaves SMs idle. A packed MLA cache is decoded to its view before
+  the walk (``models/model.py``).
 
 Each returns the unnormalised flash state — ``(acc (B,Hkv,G,T,D) f32,
 m (B,Hkv,G,T) f32, l (B,Hkv,G,T) f32)`` for GQA, ``(acc (B,H,T,L), m, l
@@ -47,8 +49,8 @@ NEG_INF = -1e30
 TRASH_BLOCK = 0
 MAX_BLOCK_SIZE = 32             # the kernels stage one block of ≤ 32 tokens
 HEAD_DIMS = (32, 64, 128)       # one lane holds D/32 of a query's dims
-MLA_LATENT_DIMS = (32, 64, 128, 256, 512)   # one lane holds L/32 dims
-MLA_MAX_ROPE = 128              # one lane holds up to 4 rope dims
+MLA_LATENT_DIMS = (32, 64, 128, 256, 512)   # 8 warps x tiles of 16 dims
+MLA_MAX_ROPE = 128              # rope dims: a multiple of 8 (the k-steps)
 
 
 def sanitize_table(table: torch.Tensor, num_blocks: int) -> torch.Tensor:
@@ -302,6 +304,48 @@ def paged_gqa_packed_split_plain(q, k_spec, v_spec, table, length, book, *,
         scale=scale, blocks_per_split=blocks_per_split)
 
 
+# ---------------------------------------------------------------------------
+# paged_mla's table split and its plain version
+# ---------------------------------------------------------------------------
+
+MLA_Q_TILE = 32                 # (head, query) pairs per CTA
+MLA_TARGET_CTAS = build.SM_COUNT    # one CTA an SM (its shared memory)
+
+
+def mla_split_plan(b: int, h: int, t: int, mb: int) -> tuple[int, int]:
+    """(table blocks per CTA, splits) of ``paged_mla``'s grid (B x
+    ⌈H·T/32⌉ pair tiles, splits): while the tiles leave SMs idle (the draft
+    and verify passes), each row's table is cut so that the CTAs fill one
+    wave of ``MLA_TARGET_CTAS``; once the tiles alone fill the card (a prefill
+    chunk) every CTA walks its whole table, in order, with no merge. A
+    function of the shapes alone, so a result never depends on the data."""
+    tiles = b * -(-(h * t) // MLA_Q_TILE)
+    mb1 = max(mb, 1)
+    if tiles >= build.SM_COUNT:
+        return mb1, 1
+    want = max(1, min(mb1, MLA_TARGET_CTAS // max(tiles, 1)))
+    bps = -(-mb1 // want)
+    return bps, -(-mb1 // bps)
+
+
+_mla_plan = functools.lru_cache(maxsize=1024)(mla_split_plan)
+
+
+def paged_mla_split_plain(q_eff, q_rope, c_pool, kr_pool, table, length, *,
+                          scale: float, blocks_per_split: int):
+    """``paged_mla``'s split walk in plain torch: each chunk of
+    ``blocks_per_split`` table columns walked into its own latent flash
+    state (the row's length shifted to the chunk), then merged in chunk
+    order."""
+    bs = c_pool.shape[1]
+    length = length.to(torch.int32).reshape(-1).expand(q_eff.shape[0])
+    parts = [paged_mla_plain(q_eff, q_rope, c_pool, kr_pool,
+                             table[:, j0:j0 + blocks_per_split],
+                             (length - j0 * bs).clamp_min(0), scale=scale)
+             for j0 in range(0, max(table.shape[1], 1), blocks_per_split)]
+    return merge_flash_plain(parts)
+
+
 def merge_gqa_suffix(acc, m, l, q, suf_k, suf_v, suf_valid, *,
                      scale: float) -> torch.Tensor:
     """Fold a (B, S, Hkv, D) suffix into paged flash state and normalise.
@@ -505,7 +549,8 @@ def paged_mla(q_eff, q_rope, c_pool, kr_pool, table, length, *,
     f32 · c_pool (NB,BS,L) · kr_pool (NB,BS,R) · table (B,MB) int32 ·
     length (B,) int32. Returns unnormalised (acc (B,H,T,L), m (B,H,T),
     l (B,H,T)) f32. CPU tensors take :func:`paged_mla_plain`; CUDA tensors
-    launch the kernel (``paged_mla.launches``) or raise."""
+    launch the kernel (``paged_mla.launches``, one per call with its split
+    merge: the table split of :func:`mla_split_plan`) or raise."""
     if q_eff.device.type == "cpu":
         return paged_mla_plain(q_eff, q_rope, c_pool, kr_pool, table, length,
                                scale=scale)
@@ -514,10 +559,11 @@ def paged_mla(q_eff, q_rope, c_pool, kr_pool, table, length, *,
     b, t, h, latent = q_eff.shape
     r_dim = q_rope.shape[-1]
     nb, bs = c_pool.shape[:2]
-    if latent not in MLA_LATENT_DIMS or not 1 <= r_dim <= MLA_MAX_ROPE:
+    if latent not in MLA_LATENT_DIMS or not 8 <= r_dim <= MLA_MAX_ROPE \
+            or r_dim % 8:
         raise ValueError(f"paged_mla: latent {latent}, rope {r_dim}; the "
                          f"kernel takes latent in {MLA_LATENT_DIMS} and "
-                         f"rope in [1, {MLA_MAX_ROPE}]")
+                         f"rope a multiple of 8 in [8, {MLA_MAX_ROPE}]")
     if not 1 <= bs <= MAX_BLOCK_SIZE:
         raise ValueError(f"block size {bs} outside [1, {MAX_BLOCK_SIZE}]")
     build.check(q_eff, "q_eff", torch.float32, (b, t, h, latent))
@@ -526,16 +572,26 @@ def paged_mla(q_eff, q_rope, c_pool, kr_pool, table, length, *,
     build.check(kr_pool, "kr_pool", torch.bfloat16, (nb, bs, r_dim))
     build.check(table, "table", torch.int32, (b, table.shape[1]))
     build.check(length, "length", torch.int32, (b,))
+    if any(x.data_ptr() % 16 for x in (q_eff, q_rope, c_pool, kr_pool)):
+        raise ValueError("q_eff, q_rope and the pools must start on a "
+                         "16-byte boundary (the kernel copies 16 bytes at "
+                         "a time)")
     dev = q_eff.device
     acc = torch.empty((b, h, t, latent), dtype=torch.float32, device=dev)
     m = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     l = torch.empty((b, h, t), dtype=torch.float32, device=dev)
-    fn = build.entry("paged_mla", "paged_mla_launch", 9, 8, 1)
+    mb = table.shape[1]
+    bps, splits = _mla_plan(b, h, t, mb)
+    ws = None
+    if splits > 1:              # partial (acc, m, l) of every split
+        ws = torch.empty(splits * m.numel() * (latent + 2),
+                         dtype=torch.float32, device=dev)
+    fn = build.entry("paged_mla", "paged_mla_launch", 10, 9, 1)
     err = fn(q_eff.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
              kr_pool.data_ptr(), table.data_ptr(), length.data_ptr(),
-             acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, t, h, latent,
-             r_dim, nb, bs, table.shape[1], float(scale),
-             torch.cuda.current_stream(dev).cuda_stream)
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+             0 if ws is None else ws.data_ptr(), b, t, h, latent, r_dim, nb,
+             bs, mb, bps, float(scale), build.stream(q_eff))
     build.raise_on(err, "paged_mla")
     paged_mla.launches += 1
     return acc, m, l

@@ -42,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_groups
 from repro_torch.core import format as fmt
 from repro_torch.core.format import CassandraConfig
+from repro_torch.kernels import mx_decode as MXD
 from repro_torch.serving.blockpool import TRASH_BLOCK
 
 ONLINE_CORR_BITS = 8
@@ -90,10 +91,18 @@ def encode_store(cass: CassandraConfig, x: torch.Tensor, d: int,
 
 def read_store(cass: CassandraConfig, store, d: int, view: str,
                codebook) -> torch.Tensor:
-    """Materialise dense (..., d) bf16 from a store per the runtime view."""
+    """Materialise dense (..., d) bf16 from a store per the runtime view.
+    A Cassandra-2 store on the card is one ``mx_view`` launch; every other
+    store runs the format's chain (its exponent decode through
+    ``unary_decode`` for Cassandra-1)."""
     if not is_packed(store):
         return store
     keep = cass.kv_keep(d)
+    if cass.variant != 1 and store["spec"]["bitmap"].is_cuda:
+        return MXD.mx_view(store["spec"],
+                           None if view == "draft" else store["verif"],
+                           block=d, keep=keep, group=fmt.kv_group(cass, d),
+                           draft_bits=cass.mx_draft_bits)
     if view == "draft":
         out = fmt.draft_tensor(store["spec"], cass, d, keep,
                                fmt.kv_group(cass, d), cass.kv_trunc, d,

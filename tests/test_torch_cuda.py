@@ -708,8 +708,9 @@ def test_codec_wrappers_reject_what_the_kernels_do_not_take(card):
 def test_c2_engine_and_scheduler_on_card(card):
     """Cassandra-2 at SMOKE width: spec tokens == AR steps at the verify
     width, bit for bit; every draft and verify pass decodes through
-    mx_decode and every KV encode runs kv_topk; the paged scheduler
-    (attention kernel off) == the Engine, overlap on == off."""
+    mx_view (no standalone mx_decode) and every KV encode runs kv_topk; the
+    paged scheduler (attention kernel off) == the Engine, overlap on ==
+    off."""
     from repro_torch.kernels import kv_topk as KT, mx_decode as MXD
     from repro_torch.serving.scheduler import Scheduler
     cfg = get_config("llama3-8b", smoke=True)
@@ -719,9 +720,10 @@ def test_c2_engine_and_scheduler_on_card(card):
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (3, 16),
                                       generator=gen, device=card)}
     eng = Engine(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3))
-    MXD.mx_decode.launches = KT.kv_topk.launches = 0
+    MXD.mx_decode.launches = MXD.mx_view.launches = KT.kv_topk.launches = 0
     spec, st = eng.generate(prompt, 12)
-    assert MXD.mx_decode.launches > 0 and KT.kv_topk.launches > 0
+    assert MXD.mx_view.launches > 0 and KT.kv_topk.launches > 0
+    assert MXD.mx_decode.launches == 0
     wide, _ = AR.ar_steps(eng, prompt["tokens"], 12, 4)
     np.testing.assert_array_equal(spec[:, :12].cpu().numpy(),
                                   wide.cpu().numpy())
@@ -890,3 +892,217 @@ def test_target_decode_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="Cassandra-1"):
         UD.target_decode(spec, verif, CassandraConfig(variant=2),
                          (512, 40))
+
+
+# ---------------------------------------------------------------------------
+# mx_view: a packed C-2 tensor's draft or target view in one launch
+# ---------------------------------------------------------------------------
+
+def _c2_leaves(shape, block, keep, group, db, seed, arbitrary=False):
+    """Packed C-2 leaves on the CPU for values (..., N) with per-lane
+    scales 2^-12..2^12 (exponent gaps above 8 in a group), zeros of both
+    signs and subnormals, and raw NaN / inf / -0 payloads among the pruned
+    values; ``arbitrary`` replaces every leaf by random words (bitmaps with
+    any count of ones, codes straddling words anywhere)."""
+    from repro_torch.core import format as fmt
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=gen) * torch.exp2(
+        torch.randint(-12, 13, shape, generator=gen).float())
+    x = x.to(torch.bfloat16)
+    flat = x.reshape(-1, shape[-1])
+    flat[0, :group] = 0.0
+    flat[1, :4] = torch.tensor([-0.0, 0.0, 1e-39, -3e-40]).to(torch.bfloat16)
+    cass = CassandraConfig(variant=2, mx_draft_bits=db)
+    spec, verif = fmt.format_tensor(x, None if block == shape[-1] else
+                                    x.float().abs(), cass, block, keep, group,
+                                    4)
+    if arbitrary:
+        for tree in (spec, verif):
+            for k, v in tree.items():
+                if v.dtype == torch.int32:
+                    tree[k] = torch.randint(-2 ** 31, 2 ** 31 - 1, v.shape,
+                                            generator=gen, dtype=torch.int32)
+                elif v.dtype == torch.uint8:
+                    tree[k] = torch.randint(0, 256, v.shape, generator=gen,
+                                            dtype=torch.uint8)
+        spec["bitmap"].view(-1, spec["bitmap"].shape[-1])[:2] = \
+            torch.tensor([0, -1], dtype=torch.int32)[:, None]
+    pr = verif["pruned_raw"]
+    if pr.numel():
+        special = torch.tensor([0x7FC1, -0x7F, 0x7F80, -0x8000, 0x0001,
+                                -0x0001], dtype=torch.int32)
+        pick = torch.randint(0, 6, pr.shape, generator=gen)
+        mask = torch.rand(pr.shape, generator=gen) < 0.1
+        verif["pruned_raw"] = torch.where(
+            mask, special[pick].to(torch.int16), pr)
+    return spec, verif
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["weight draft", "weight draft f32",
+                                  "weight target", "kv draft", "kv target"])
+@pytest.mark.parametrize("block,keep,group,db", [
+    (512, 320, 32, 4), (512, 320, 32, 3), (256, 160, 32, 4),
+    (128, 64, 16, 4), (64, 32, 32, 3), (32, 32, 16, 4), (96, 48, 16, 4),
+    (512, 512, 32, 4)])
+@pytest.mark.parametrize("arbitrary", [False, True])
+def test_mx_view_matches_chain_on_card(card, path, block, keep, group, db,
+                                       arbitrary):
+    """Bit for bit against the plain chain (``mx_view_plain``: the
+    reference's draft_tensor / target_tensor over the same leaves, on the
+    CPU) on weights of several blocks a row and on KV stores (B, S, Hkv,
+    one block a vector): 5- and 12-bit codes (4- and 13-bit with 3 draft
+    bits) at every bit offset, blocks of 32-512 values, keep == block, NaN
+    payloads among the pruned values, and random words throughout."""
+    from repro_torch.kernels import mx_decode as MXD
+    if path.startswith("kv"):
+        shape, view_block = (2, 9, 3, block), block
+    else:
+        shape, view_block = (37, 3 * block), block
+    spec, verif = _c2_leaves(shape, view_block, keep, group, db,
+                             seed=block + keep + db + 7 * arbitrary,
+                             arbitrary=arbitrary)
+    target = path.endswith("target")
+    dtype = torch.float32 if path.endswith("f32") else torch.bfloat16
+    kw = dict(block=view_block, keep=keep, group=group, draft_bits=db,
+              dtype=dtype)
+    want = MXD.mx_view_plain(spec, verif if target else None, **kw)
+    on = {z: {k: v.to(card) for k, v in t.items()}
+          for z, t in (("spec", spec), ("verif", verif))}
+    before = MXD.mx_view.launches
+    got = MXD.mx_view(on["spec"], on["verif"] if target else None, **kw)
+    torch.cuda.synchronize()
+    assert MXD.mx_view.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    wide = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.cpu().view(wide), want.view(wide))
+
+
+@pytest.mark.cuda
+def test_mx_view_weights_and_stores_through_their_callers_on_card(card):
+    """format.draft_weight / target_weight / draft_weight_f32 and
+    kvcache.read_store on CUDA tensors are one mx_view launch each and
+    equal their plain chains bit for bit; none runs mx_decode."""
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import mx_decode as MXD
+    from repro_torch.serving import kvcache as KC
+    cass = CassandraConfig(variant=2)
+    gen = torch.Generator().manual_seed(5)
+    w = torch.randn((1024, 200), generator=gen).to(torch.bfloat16)
+    spec, verif = fmt.format_weight(w, None, cass)
+    shape = (1024, 200)
+    cs = {k: v.to(card) for k, v in spec.items()}
+    cv = {k: v.to(card) for k, v in verif.items()}
+    MXD.mx_view.launches = MXD.mx_decode.launches = 0
+    got = (fmt.draft_weight(cs, cass, shape),
+           fmt.target_weight(cs, cv, cass, shape),
+           fmt.draft_weight_f32(cs, cass, shape))
+    want = (fmt.draft_weight_plain(spec, cass, shape),
+            fmt.target_weight_plain(spec, verif, cass, shape),
+            fmt.draft_weight_plain(spec, cass, shape).float())
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == shape
+        wide = torch.int32 if a.dtype == torch.float32 else torch.int16
+        assert torch.equal(a.cpu().contiguous().view(wide),
+                           b.contiguous().view(wide))
+    kv = (torch.randn((2, 5, 2, 128), generator=gen) * 3).to(torch.bfloat16)
+    store = KC.encode_store(cass, kv, 128, KC.default_kv_codebook())
+    on = {z: {k: v.to(card) for k, v in t.items()} for z, t in store.items()}
+    for view in ("draft", "target"):
+        a = KC.read_store(cass, on, 128, view, None)
+        b = KC.read_store(cass, store, 128, view, None)
+        assert torch.equal(a.cpu().view(torch.int16), b.view(torch.int16))
+    assert MXD.mx_view.launches == 5 and MXD.mx_decode.launches == 0
+
+
+@pytest.mark.cuda
+def test_mx_view_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import mx_decode as MXD
+    spec, verif = _c2_leaves((4, 512), 512, 320, 32, 4, seed=1)
+    on = {k: v.to(card) for k, v in spec.items()}
+    kw = dict(block=512, keep=320, group=32, draft_bits=4)
+    with pytest.raises(ValueError, match="outside"):
+        MXD.mx_view(on, None, **{**kw, "group": 40})
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        MXD.mx_view(on, None, **kw, dtype=torch.float16)
+    with pytest.raises(ValueError, match="shape"):
+        MXD.mx_view(on, None, **{**kw, "keep": 288})
+    with pytest.raises(ValueError, match="is on cpu"):
+        MXD.mx_view({**on, "signmant": spec["signmant"]}, None, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,group", [(24, 8), (36, 12), (100, 4), (8, 8),
+                                     (1000, 40), (320, 32)])
+def test_mx_decode_lane_counts_on_card(card, k, group):
+    """The 8-lane vector path and its scalar twin (lane counts that are not
+    multiples of 8, groups that do not cover 8 lanes) bit for bit against
+    the plain version on every container value."""
+    from repro_torch.core.bitops import as_int16
+    from repro_torch.kernels import mx_decode as MXD
+    gen = torch.Generator().manual_seed(k + group)
+    rows = -(-(1 << 16) // k) + 5
+    m16 = torch.randint(0, 1 << 16, (rows * k,), generator=gen,
+                        dtype=torch.int32)
+    m16[:1 << 16] = torch.arange(1 << 16, dtype=torch.int32)
+    sign = torch.randint(0, 256, (rows, k), generator=gen, dtype=torch.uint8)
+    se = torch.randint(0, 256, (rows, k // group), generator=gen,
+                       dtype=torch.uint8)
+    s, m, e = sign.to(card), as_int16(m16.reshape(rows, k)).to(card), \
+        se.to(card)
+    before = MXD.mx_decode.launches
+    got = MXD.mx_decode(s, m, e, group)
+    torch.cuda.synchronize()
+    assert MXD.mx_decode.launches == before + 1
+    want = MXD.mx_decode_plain(sign, as_int16(m16.reshape(rows, k)), se,
+                               group)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# paged_mla: the tensor-core walk and its table split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("split", [None, 1, 2, 6])
+@pytest.mark.parametrize("lat,rope,bs", [(64, 16, 4), (512, 64, 16),
+                                         (256, 32, 32)])
+def test_paged_mla_splits_on_card(card, t, split, lat, rope, bs, monkeypatch,
+                                  fresh_plans):
+    """The split walk (the main path's plan, and plans forced to 1, 2 and 6
+    splits by the CTA target): (acc, m, l) within rtol 1e-4 / atol 1e-5 of
+    the plain walk and of the split walk in plain torch; two launches equal
+    bit for bit; NaN in every pool row no valid position reads never
+    reaches the state; the empty row stays initial."""
+    from repro_torch.kernels import paged_attention as PA
+    PA._mla_plan.cache_clear()
+    args = _mla_inputs(card, lat=lat, rope=rope, t=t, bs=bs, h=16,
+                       seed=t * 11 + lat + bs)
+    b, _, h, _ = args[0].shape
+    mb = args[4].shape[1]
+    if split is not None:
+        monkeypatch.setattr(PA.build, "SM_COUNT", 10 ** 6)
+        monkeypatch.setattr(PA, "MLA_TARGET_CTAS",
+                            split * b * -(-(h * t) // PA.MLA_Q_TILE))
+    bps, splits = PA._mla_plan(b, h, t, mb)
+    assert split is None or splits == split
+    assert args[2].isnan().any()
+    scale = (lat + rope) ** -0.5
+    before = PA.paged_mla.launches
+    got = PA.paged_mla(*args, scale=scale)
+    again = PA.paged_mla(*args, scale=scale)
+    want = PA.paged_mla_plain(*args, scale=scale)
+    want_s = PA.paged_mla_split_plain(*args, scale=scale,
+                                      blocks_per_split=bps)
+    torch.cuda.synchronize()
+    PA._mla_plan.cache_clear()
+    assert PA.paged_mla.launches == before + 2
+    for a, a2, c, cs in zip(got, again, want, want_s):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a, cs, rtol=1e-4, atol=1e-5)
+    acc, m, l = got
+    assert (acc[1] == 0).all() and (m[1] == PA.NEG_INF).all() \
+        and (l[1] == 0).all()

@@ -10,6 +10,10 @@
   unsplit plain walk within rtol 1e-4 / atol 1e-5, and the JAX reference's
   ``paged_gqa_packed`` run as its own tests run it on the CPU (``jnp`` and
   Pallas ``interpret``), on inputs made from a numpy seed.
+* ``mx_view``: its plan covers every block of a C-2 tensor exactly once.
+* ``paged_mla``: its table split covers the table and cuts it only while
+  the (row, pair tile) grid leaves SMs idle (its plain split walk is
+  held to the reference in ``test_torch_mla.py``).
 The CUDA kernels themselves run on the card: ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
@@ -314,3 +318,74 @@ def test_plain_split_plan_splits_only_an_idle_grid(b, hkv, g, t, mb, split):
         assert (bps, splits) == (mb, 1)
     else:
         assert (bps, splits) == PA.gqa_split_plan(b, hkv, g, t, mb)
+
+
+# ---------------------------------------------------------------------------
+# mx_view: the launch plan over a C-2 tensor's blocks
+# ---------------------------------------------------------------------------
+
+def _c2_blocks():
+    """Block counts of every C-2 view on the main path: each weight shape
+    of Llama-3-8B (512-value blocks), a layer's KV store after a 128-token
+    prefill and the whole stacked store (one block a (token, head))."""
+    llama = get_config("llama3-8b")
+    cass = CassandraConfig(variant=2)
+    out = [s[1] * (s[0] // cass.weight_block(s[0])) for s in MAIN_SHAPES
+           if s[0] % 32 == 0]
+    s = 128 + 32 + 4
+    out += [4 * s * llama.n_kv_heads, llama.n_layers * 4 * s
+            * llama.n_kv_heads]
+    return out + [1, 7, 8, 9, 527 * 8 + 1]
+
+
+@pytest.mark.parametrize("blocks", _c2_blocks())
+@pytest.mark.parametrize("target", [None, 1, 5, 10 ** 9])
+def test_view_plan_covers_each_block_once(blocks, target, monkeypatch):
+    """Every block of the tensor decoded by exactly one warp of one CTA,
+    under the main path's plan (one wave of ``VIEW_CTAS``) and plans forced
+    by the CTA target: CTA c owns blocks [c * chunk, (c + 1) * chunk),
+    warp w of it blocks c * chunk + w, + 8, ..."""
+    from repro_torch.kernels import mx_decode as MXD
+    if target is not None:
+        monkeypatch.setattr(MXD, "VIEW_CTAS", target)
+    chunk, ctas = MXD.view_plan(blocks)
+    seen = np.zeros(blocks, np.int32)
+    for c in range(ctas):
+        end = min(blocks, (c + 1) * chunk)
+        for w in range(MXD.VIEW_WARPS):
+            seen[c * chunk + w:end:MXD.VIEW_WARPS] += 1
+    assert (seen == 1).all()
+    assert chunk >= MXD.VIEW_WARPS
+    assert ctas <= max(MXD.VIEW_CTAS, 1) or chunk == MXD.VIEW_WARPS
+
+
+# ---------------------------------------------------------------------------
+# paged_mla: the table split of the tensor-core walk
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,t,mb,split", [
+    (4, 128, 1, 11, True),      # DeepSeek-V3's draft pass at the model's pools
+    (4, 128, 4, 11, True),      # its verify pass
+    (4, 128, 32, 11, False),    # a 32-token prefill chunk: 512 tiles
+    (4, 128, 1, 257, True),     # 4 x 4096 tokens
+    (4, 128, 4, 257, True),
+    (4, 128, 32, 257, False),
+    (1, 4, 1, 1, False), (3, 4, 1, 0, False), (2, 16, 3, 6, True)])
+def test_mla_split_plan_covers_the_table_and_splits_an_idle_grid(
+        b, h, t, mb, split):
+    """Every table column in exactly one split; the table is cut only while
+    the (row, pair tile) grid leaves SMs idle, up to about one CTA an SM;
+    a grid whose tiles fill the card walks each table whole, in order."""
+    bps, splits = PA.mla_split_plan(b, h, t, mb)
+    cols = np.zeros(max(mb, 1), np.int32)
+    for s in range(splits):
+        cols[s * bps:(s + 1) * bps] += 1
+    assert (cols == 1).all()
+    tiles = b * -(-(h * t) // PA.MLA_Q_TILE)
+    assert (splits > 1) == split
+    if tiles >= PA.build.SM_COUNT:
+        assert (bps, splits) == (max(mb, 1), 1)
+    else:
+        assert tiles * splits <= max(PA.MLA_TARGET_CTAS, tiles)
+        assert splits == -(-max(mb, 1) // bps)
+    assert PA.mla_split_plan(b, h, t, mb) == (bps, splits)

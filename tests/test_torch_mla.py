@@ -570,3 +570,31 @@ def test_paged_scheduler_kernel_on_equals_off(models, engine, variant):
         _, got = _serve(m["cfg"], params, cass, prompts, attn_kernel="on",
                         overlap=False)
         assert got == outs["on"]
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("bps", [1, 2, 3, MB])
+def test_paged_mla_split_walk_matches_unsplit_and_reference(t, bps):
+    """``paged_mla``'s table split in plain torch (each chunk of ``bps``
+    table columns walked into its own latent flash state, merged in chunk
+    order) against the unsplit walk and the reference's ``paged_mla``
+    (``impl="jnp"``): within rtol 1e-4 / atol 1e-5; the empty row keeps
+    the initial state through the merge and no masked NaN reaches it."""
+    q_eff, q_rope, c, kr, tbl = _mla_walk(np.random.default_rng(40 + t), t)
+    scale = 1.0 / (32 + ROPE) ** 0.5
+    args = (q_eff, q_rope, c, kr, tbl, LENGTHS)
+    port = [TP.to_port(a) for a in args]
+    split = PA.paged_mla_split_plain(*port, scale=scale,
+                                     blocks_per_split=bps)
+    unsplit = PA.paged_mla_plain(*port, scale=scale)
+    ref = JPA.paged_mla(*(jnp.asarray(a) for a in args), scale=scale,
+                        impl="jnp")
+    for s, u, r in zip(split, unsplit, ref):
+        assert bool(torch.isfinite(s).all())
+        np.testing.assert_allclose(TP.f32(s), TP.f32(u), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(TP.f32(s), TP.f32(r), rtol=RTOL,
+                                   atol=ATOL)
+    acc, m, l = split
+    assert (acc[0] == 0).all() and (m[0] == PA.NEG_INF).all() \
+        and (l[0] == 0).all()

@@ -279,3 +279,70 @@ def test_c2_scheduler_paths_bitwise(c2, c2_engine):
         np.testing.assert_array_equal(_serve(c2, **kw), base, err_msg=str(kw))
     with pytest.raises(ValueError, match="exp_words"):
         _serve(c2, paged=True, attn_kernel="on")
+
+
+def _nan_pruned(verif: dict, rng) -> dict:
+    """Raw NaN (two payloads), inf, -0, the smallest subnormals among the
+    pruned values, which every view moves as 16-bit patterns."""
+    pr = np.array(verif["pruned_raw"]).view(np.uint16).copy()
+    if pr.size:
+        special = np.array([0x7FC1, 0xFF81, 0x7F80, 0x8000, 0x0001, 0x8001],
+                           np.uint16)
+        hit = rng.random(pr.shape) < 0.15
+        pr[hit] = special[rng.integers(0, 6, pr.shape)][hit]
+    dtype = np.asarray(verif["pruned_raw"]).dtype
+    return {**verif, "pruned_raw": jnp.asarray(pr.view(dtype))}
+
+
+@pytest.mark.parametrize("draft_bits", [3, 4])
+@pytest.mark.parametrize("prune", [0.4, 0.0])
+@pytest.mark.parametrize("kind", ["weight", "kv"])
+def test_mx_view_chain_matches_reference(kind, prune, draft_bits):
+    """The C-2 views that ``mx_view`` is held to (on CPU tensors, the chain
+    ``mx_view_plain``) bit for bit against the reference's draft_tensor /
+    target_tensor on the same packed leaves: weights and KV stores, values
+    with exponent gaps above 8, +-0 and subnormals, NaN payloads among the
+    pruned values, keep == block (prune 0), 4- and 5-bit sign|draft codes;
+    the f32 draft view is the reference's bf16 view widened."""
+    from repro_torch.kernels import mx_decode as MXD
+    jc = jfmt.CassandraConfig(variant=2, mx_draft_bits=draft_bits,
+                              weight_prune=prune, kv_prune=prune)
+    rng = np.random.default_rng(int(prune * 10) + 3 * draft_bits
+                                + len(kind))
+    if kind == "weight":
+        shape = (1024, 40)
+        jspec, jverif = jfmt.format_weight(
+            jnp.asarray(_mx_input(rng, shape, 32)), None, jc)
+        block = jc.weight_block(shape[0])
+        keep, group, trunc, n = (jc.weight_keep(block), jc.mx_group,
+                                 jc.weight_trunc, shape[0])
+    else:
+        d = 128
+        jspec, jverif = jfmt.format_kv(
+            jnp.asarray(_mx_input(rng, (2, 5, 2, d), 16)), jc)
+        block, keep, group, trunc, n = (d, jc.kv_keep(d),
+                                        jfmt.kv_group(jc, d), jc.kv_trunc, d)
+    assert (keep == block) == (prune == 0.0)
+    jverif = _nan_pruned(jverif, rng)
+    spec, verif = TP.to_port(jspec), TP.to_port(jverif)
+    kw = dict(block=block, keep=keep, group=group, draft_bits=draft_bits)
+    jdraft = jfmt.draft_tensor(jspec, jc, block, keep, group, trunc, n)
+    before = MXD.mx_view.launches
+    TP.assert_bitwise(MXD.mx_view(spec, None, **kw), jdraft)
+    # the reference's select rewrites a NaN's payload (0x7FC0 / 0xFFC0);
+    # the port moves every pruned value as its raw 16-bit pattern
+    got = TP.bits(MXD.mx_view(spec, verif, **kw))
+    ref = TP.bits(jfmt.target_tensor(jspec, jverif, jc, block, keep, group,
+                                     trunc, n))
+    nan = (ref & 0x7F80) == 0x7F80
+    nan &= (ref & 0x7F) != 0
+    np.testing.assert_array_equal(got[~nan], ref[~nan])
+    assert (nan.any() if prune else True)
+    raw = {int(v) for v in TP.bits(verif["pruned_raw"]).ravel()}
+    assert all(int(v) in raw and (v & 0x7F80) == 0x7F80 and v & 0x7F
+               for v in got[nan])
+    f32 = MXD.mx_view(spec, None, **kw, dtype=torch.float32)
+    np.testing.assert_array_equal(
+        f32.numpy().view(np.uint32),
+        np.asarray(jdraft).astype(np.float32).view(np.uint32))
+    assert MXD.mx_view.launches == before          # CPU: the plain chain
