@@ -36,10 +36,15 @@ these phases; any failure exits non-zero:
               bound, plain and library µs per shape (kernel and library by
               CUDA-graph replay, eager beside);
 4c. codec   — ``unary_decode`` on the C-1 model's own exponent regions
-              and arbitrary words, ``kv_topk`` on a prefill's K and V and
-              on rows with ties, +-0 and all-equal values: bit for bit
-              against their plain versions; kernel, bound, plain (and, for
-              ``kv_topk``, ``torch.topk`` as the nearest library call) µs;
+              and arbitrary words; ``kv_topk``, ``kv_encode`` and
+              ``kv_view`` (draft and target) on a prefill's K and V and on
+              edge rows (ties, +-0, all-equal, NaN payloads, inf,
+              subnormals, mode 1), ``kv_view`` on one layer of a 4 ×
+              4096-token pool: bit for bit against their plain versions
+              (``kv_encode`` / ``kv_view`` against the plain chains the
+              main path ran before them); kernel (graph replay and eager),
+              bound, plain (and, for ``kv_topk``, ``torch.topk`` as the
+              nearest library call) µs;
 7. sched    — the paged continuous-batching ``Scheduler`` at full width on
               phase 6's prompts (4 slots, block 16, chunk 32, fused,
               overlap, ``attn_kernel="on"``): 32 tokens per request,
@@ -81,9 +86,9 @@ these phases; any failure exits non-zero:
               atol 1e-5 (acc's own rounding grows with l, a sum of up to
               4096 unnormalised terms), two launches equal bit for bit;
               kernel (graph replay and eager), the TF32 and the f32
-              CUDA-core bounds, plain and SDPA µs; ``kv_topk`` and
-              ``unary_decode`` on the prefill's c (d 512) and kr (d 64),
-              bit for bit;
+              CUDA-core bounds, plain and SDPA µs; ``kv_topk``,
+              ``kv_encode``, ``kv_view`` and ``unary_decode`` on the
+              prefill's c (d 512) and kr (d 64), bit for bit;
 12. mla engine — ``Engine.generate`` on the MLA model (4 × 128-token
               prompts × 32 new): spec tokens equal AR steps at the verify
               width on every position; packed bytes, one verify pass, tok/s
@@ -101,11 +106,12 @@ these phases; any failure exits non-zero:
 Phases run in the order 1-6, 4b, 4c, 7-14 (4b and 4c read phase 6's
 prompts). Phases 6, 7, 9, 10, 12 and 13 set every kernel's launch count
 to 0 before their run and check it after against what the passes imply
-(the C-1 runs also count ``kv_topk``, the KV encode, and
-``unary_decode``, the exponent decode of the target view; the C-2 runs
-``mx_view``, one per packed matrix and per KV store, view and pass). Phases 1-6 draw
-their inputs from ``--seed``, the later ones from generators of their
-own.
+(the C-1 runs also count ``kv_encode``, one per KV store per commit,
+``kv_view``, one per KV store view, and ``unary_decode``, MLA's kv_b
+draft view; the C-2 runs ``kv_topk``, the KV encode's selection, and
+``mx_view``, one per packed matrix and per KV store, view and pass).
+Phases 1-6 draw their inputs from ``--seed``, the later ones from
+generators of their own.
 
 Every time is measured on the card in this run (CUDA events, or the host
 clock around work that ends in ``torch.cuda.synchronize()``). Where a
@@ -740,13 +746,14 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     if launches == 0 or launches != expect:
         fail(f"main: draft_matmul launched {launches} times, expected "
              f"{expect}")
-    # one target_decode per packed weight per target pass; the exponent
-    # decode of the KV target view per layer per verify pass and of the
-    # cache's draft view once per cycle; the KV encode per commit
+    # one target_decode per packed weight per target pass; one kv_view
+    # per KV target view per layer per verify pass and per draft view of
+    # the cache once per cycle; one kv_encode per store per commit
     cyc, mats = st_sp["cycles"], packed_matrices(packed)
     check_launches("main", codec, {
-        "mx_decode": 0, "mx_view": 0, "kv_topk": 2 * (1 + cyc),
-        "unary_decode": 2 * cfg.n_layers * cyc + 2 * cyc,
+        "mx_decode": 0, "mx_view": 0, "kv_topk": 0,
+        "kv_encode": 2 * (1 + cyc),
+        "kv_view": 2 * cfg.n_layers * cyc + 2 * cyc, "unary_decode": 0,
         "target_decode": mats * (1 + cyc)})
     say(f"[main] spec: cycles {st_sp['cycles']}, acceptance "
         f"{st_sp['acceptance']:.3f}, tokens/cycle "
@@ -1111,8 +1118,9 @@ def sched_phase(packed, cfg, cass, args, main: dict, paged: dict,
         fail(f"sched: launches {launches} != expected {expect}")
     # the packed kernel decodes the draft KV itself: no draft view
     check_launches("sched", codec, {
-        "mx_decode": 0, "mx_view": 0, "kv_topk": 2 * targets,
-        "unary_decode": targets * 2 * layers,
+        "mx_decode": 0, "mx_view": 0, "kv_topk": 0,
+        "kv_encode": 2 * targets, "kv_view": targets * 2 * layers,
+        "unary_decode": 0,
         "target_decode": targets * packed_matrices(packed)})
     # the first cycle: the wide prefill's last logits against the Engine's
     # prefill logits at the same tokens
@@ -1273,8 +1281,9 @@ def _bits(t):
 def _same_bits(a, b) -> bool:
     import torch
     if isinstance(a, dict):
-        return all(_same_bits(a[k], b[k]) for k in a)
-    return torch.equal(_bits(a), _bits(b))
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
 
 
 def _max_err(a, b) -> float:
@@ -1289,40 +1298,100 @@ def _max_err(a, b) -> float:
 def codec_row(kernel: str, case: str, run, plain, nbytes: int, ops: int,
               library=None, reps: int = 20) -> dict:
     """One codec kernel at one shape: bit for bit against its plain version
-    on the same inputs, then µs per launch (CUDA events), the bound (the
-    larger of the bytes at 3.35 TB/s and the integer/compare operations at
-    the CUDA cores' 67 T/s) and the plain version's time; ``library`` is
-    the nearest PyTorch call, timed as a yardstick only."""
+    (or plain chain) on the same inputs, then µs per launch by CUDA-graph
+    replay and eagerly, the bound (the larger of the bytes at 3.35 TB/s
+    and the integer/compare operations at the CUDA cores' 67 T/s) and the
+    plain version's time; ``library`` is the nearest PyTorch call, timed
+    as a yardstick only."""
     import torch
     got, want = run(), plain()
     torch.cuda.synchronize()
     if not _same_bits(got, want):
         fail(f"codec: {kernel} {case} differs from its plain version")
     err = _max_err(got, want)
-    k_ms = cuda_ms(run, reps)
+    del got, want
+    k_ms = graph_ms(run, reps)
+    k_eager = cuda_ms(run, reps)
     p_ms = cuda_ms(plain, 2)
-    l_ms = cuda_ms(library, reps) if library is not None else None
+    l_ms = graph_ms(library, reps) if library is not None else None
     tb, to = nbytes / HBM_BYTES_PER_S, ops / CORE_OPS_PER_S
-    row = {"kernel": kernel, "case": case, "ms": k_ms, "plain_ms": p_ms,
-           "bound_ms": max(tb, to) * 1e3,
+    row = {"kernel": kernel, "case": case, "ms": k_ms, "eager_ms": k_eager,
+           "plain_ms": p_ms, "bound_ms": max(tb, to) * 1e3,
            "bound_by": "bytes" if tb >= to else "operations",
            "library_ms": l_ms, "err": err, "bytes": nbytes}
     lib = f"  nearest library {l_ms * 1e3:.1f} us" if l_ms is not None \
         else "  library none"
-    say(f"[codec] {kernel:12s} {case:34s}: bit for bit; kernel "
-        f"{k_ms * 1e3:.1f} us  bound {row['bound_ms'] * 1e3:.2f} us "
-        f"({row['bound_by']}, {nbytes / 1e6:.2f} MB)  plain "
+    say(f"[codec] {kernel:12s} {case:40s}: bit for bit; kernel "
+        f"{k_ms * 1e3:.1f} us (eager {k_eager * 1e3:.1f})  bound "
+        f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+        f"{nbytes / 1e6:.2f} MB; x{k_ms / row['bound_ms']:.2f})  plain "
         f"{p_ms * 1e3:.1f} us{lib}")
     return row
 
 
+SELECT_OPS = 16                    # the radix select: 15 rounds + the ties
+
+
+def kv_codec_rows(cass, x, d: int, case: str, book, views=True) -> list:
+    """kv_topk, kv_encode and (``views``) kv_view's draft and target views
+    on (…, d) vectors ``x``: each against its plain version or the plain
+    chain the main path ran before them (``kvcache.encode_store_plain`` /
+    ``read_store_plain``), bit for bit."""
+    import torch
+    from repro_torch.core.format import tree_nbytes
+    from repro_torch.kernels import kv_topk as KT
+    from repro_torch.serving import kvcache as KC
+    x = x.reshape(-1, d).contiguous()
+    r, kk = x.shape[0], cass.kv_keep(d)
+    mag = x.float().abs()
+    kw = dict(keep=kk, trunc=cass.kv_trunc, exp_bits=cass.exp_bits)
+    rows = [codec_row(
+        "kv_topk", f"{case} {r}x{d}->{kk}",
+        lambda: KT.kv_topk(x, kk), lambda: KT.kv_topk_plain(x, kk),
+        r * (2 * d + d // 8 + 2 * d), r * d * SELECT_OPS,
+        library=lambda: torch.topk(mag, kk, dim=-1))]
+    store = KC.encode_store(cass, x, d, book)
+    rows.append(codec_row(
+        "kv_encode", f"{case} {r}x{d}->{kk}",
+        lambda: dict(zip(("spec", "verif"), KT.kv_encode(x, book[1], **kw))),
+        lambda: KC.encode_store_plain(cass, x, d, book),
+        r * 2 * d + tree_nbytes(store), r * d * SELECT_OPS))
+    if views:
+        rows += kv_view_rows(cass, store, d, f"{case} store", book)
+    del store, mag
+    return rows
+
+
+def kv_view_rows(cass, store, d: int, case: str, book) -> list:
+    """kv_view's draft and target views of a C-1 store against the plain
+    chain (``kvcache.read_store_plain``), bit for bit."""
+    from repro_torch.core.format import tree_nbytes
+    from repro_torch.kernels import unary_decode as UD
+    from repro_torch.serving import kvcache as KC
+    kw = dict(d=d, keep=cass.kv_keep(d), trunc=cass.kv_trunc,
+              exp_bits=cass.exp_bits)
+    units = store["spec"]["bitmap"].numel() // (d // 32)
+    rows = []
+    for view in ("draft", "target"):
+        verif = store["verif"] if view == "target" else None
+        rows.append(codec_row(
+            "kv_view", f"{case} {view} {units}x{d}",
+            lambda v=verif: UD.kv_view(store["spec"], v, book[0], **kw),
+            lambda w=view: KC.read_store_plain(cass, store, d, w, book),
+            tree_nbytes(store["spec"]) + tree_nbytes(verif or {})
+            + units * d * 2, units * d * 8))
+    return rows
+
+
 def codec_c1_phase(packed, cfg, cass, prompt, gen) -> list:
     """unary_decode on the C-1 model's own exponent regions (w_gate, layer
-    0: kept and pruned) and arbitrary words; kv_topk on a prefill's K and V
-    and on synthetic rows with ties, +-0 and all-equal rows."""
+    0: kept and pruned) and arbitrary words; kv_topk, kv_encode and
+    kv_view on a prefill's K and V and on synthetic edge rows (ties, +-0,
+    all-equal, NaN payloads, inf, subnormals, mode 1); kv_view on one
+    layer of a 4 x 4096-token pool."""
     import torch
-    from repro_torch.core import bitops, coding
-    from repro_torch.kernels import kv_topk as KT, unary_decode as UD
+    from repro_torch.kernels import unary_decode as UD
+    from repro_torch.serving import kvcache as KC
     rows = []
     wg = packed["dec"][0]["e0"]["ffn"]["w_gate"]["w"]
     block = cass.weight_block(cfg.d_model)
@@ -1349,25 +1418,61 @@ def codec_c1_phase(packed, cfg, cass, prompt, gen) -> list:
         lambda: UD.unary_decode_plain(rnd, keep),
         4 * 16384 * (30 + keep), 32 * 16384 * 30))
     k, v = layer0_kv(packed, cfg, cass, prompt)
-    d, kk = cfg.hd, cass.kv_keep(cfg.hd)
-    syn = (torch.randn((4096, d), generator=gen, device="cuda") * 0.25).to(
-        torch.bfloat16)
-    syn[::4] = 1.0                                       # all equal
-    syn[1::4, ::2] = -0.0                                # +-0 and ties
-    syn[1::4, 1::2] = 0.0
-    syn[2::4] = syn[2::4].abs().round()
+    d = cfg.hd
+    book = KC.default_kv_codebook("cuda")
     for case, x in (("prefill K (layer 0)", k), ("prefill V (layer 0)", v),
-                    ("synthetic ties / +-0 / all-equal", syn)):
-        x = x.reshape(-1, d).contiguous()
-        r = x.shape[0]
-        mag = x.float().abs()
-        rows.append(codec_row(
-            "kv_topk", f"{case} {r}x{d}->{kk}",
-            lambda x=x: KT.kv_topk(x, kk), lambda x=x: KT.kv_topk_plain(x, kk),
-            r * (2 * d + d // 8 + 2 * d), r * d * int(math.log2(d)),
-            library=lambda mag=mag: torch.topk(mag, kk, dim=-1)))
+                    ("synthetic edge rows", edge_rows(gen, 4096, d))):
+        rows += kv_codec_rows(cass, x, d, case, book)
     del k, v
+    # one layer of a 4 x 4096-token pool (the view a paged verify pass
+    # reads per layer and store): half the vectors at scale 1/4, a quarter
+    # spread over 2^+-8 (mode 1), a quarter mostly zeros
+    x = synthetic_kv(gen, (4 * 4096, cfg.n_kv_heads, d))
+    pool = KC.encode_store(cass, x, d, book)
+    del x
+    rows += kv_view_rows(cass, pool, d, "pool 4x4096 tokens", book)
+    del pool
+    torch.cuda.empty_cache()
     return rows
+
+
+def edge_rows(gen, r: int, d: int):
+    """(r, d) bf16 on the card: rows at scale 1/4, and every 8 rows one
+    each of all equal, +-0 only, |v| ties (small integers), NaN payloads
+    of every kind, inf, subnormals and a 2^+-12 spread."""
+    import torch
+    x = (torch.randn((r, d), generator=gen, device="cuda") * 0.25).to(
+        torch.bfloat16)
+    x[::8] = 1.0                                         # all equal
+    x[1::8, ::2] = -0.0                                  # +-0 and ties
+    x[1::8, 1::2] = 0.0
+    x[2::8] = (x[2::8] * 8).round()
+    b = x.view(torch.int16)
+    b[3::8, ::5] = 0x7FC1                                # NaN payloads
+    b[3::8, 2::7] = -0x7F                                # 0xFF81
+    b[4::8, ::9] = 0x7F80                                # inf
+    x[5::8] = (torch.randn((len(x[5::8]), d), generator=gen, device="cuda")
+               * 2.0 ** -128).to(torch.bfloat16)         # subnormals
+    x[6::8] = (torch.randn((len(x[6::8]), d), generator=gen, device="cuda")
+               * torch.exp2(torch.randint(-12, 13, (len(x[6::8]), d),
+                                          generator=gen, device="cuda")
+                            .float())).to(torch.bfloat16)
+    return x
+
+
+def synthetic_kv(gen, shape):
+    """bf16 K or V of ``shape`` on the card: half the vectors at scale
+    1/4, a quarter spread over 2^+-8, a quarter 70% zeros."""
+    import torch
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.25
+    pick = torch.randint(0, 4, (*shape[:-1], 1), generator=gen,
+                         device="cuda")
+    spread = torch.exp2(torch.randint(-8, 9, shape, generator=gen,
+                                      device="cuda").float())
+    x = torch.where(pick == 0, x * spread, x)
+    zeros = torch.rand(shape, generator=gen, device="cuda") < 0.7
+    x = torch.where((pick == 1) & zeros, 0.0, x)
+    return x.to(torch.bfloat16)
 
 
 def codec_mx_phase(packed, cfg, cass, prompt) -> list:
@@ -1449,6 +1554,8 @@ def codec_launches() -> dict:
     return {"mx_decode": MXD.mx_decode.launches,
             "mx_view": MXD.mx_view.launches,
             "kv_topk": KT.kv_topk.launches,
+            "kv_encode": KT.kv_encode.launches,
+            "kv_view": UD.kv_view.launches,
             "unary_decode": UD.unary_decode.launches,
             "target_decode": UD.target_decode.launches}
 
@@ -1460,7 +1567,7 @@ def reset_launches() -> None:
     from repro_torch.kernels import unary_decode as UD
     for fn in (DM.draft_matmul, PA.paged_gqa, PA.paged_gqa_packed,
                PA.paged_mla, MXD.mx_decode, MXD.mx_view, KT.kv_topk,
-               UD.unary_decode, UD.target_decode):
+               KT.kv_encode, UD.kv_view, UD.unary_decode, UD.target_decode):
         fn.launches = 0
 
 
@@ -1736,7 +1843,8 @@ def c2_main_phase(cfg, args, prompt) -> dict:
     check_launches("c2", launches, {
         "mx_decode": 0, "mx_view": mats * (1 + cyc) + 2 * layers * cyc
         + gamma * cyc * mats + 2 * cyc,
-        "kv_topk": 2 * (1 + cyc), "unary_decode": 0, "target_decode": 0})
+        "kv_topk": 2 * (1 + cyc), "kv_encode": 0, "kv_view": 0,
+        "unary_decode": 0, "target_decode": 0})
     say(f"[c2] spec: cycles {cyc}, acceptance {st['acceptance']:.3f}, "
         f"tokens/cycle {st['tokens_per_cycle']:.3f}, {b * n / sp_s:.2f} tok/s "
         f"({sp_s:.1f} s); max_memory_allocated {peak / 2**30:.2f} GiB")
@@ -1783,8 +1891,8 @@ def c2_depth_phase(args, gen) -> None:
             check_launches("c2-sched", got, {
                 "mx_decode": 0, "mx_view": targets * (mats + 2 * cfg.n_layers)
                 + gamma * unified * mats + 2 * unified,
-                "kv_topk": 2 * targets, "unary_decode": 0,
-                "target_decode": 0})
+                "kv_topk": 2 * targets, "kv_encode": 0, "kv_view": 0,
+                "unary_decode": 0, "target_decode": 0})
     for other in ("overlap off", "alternating"):
         same = np.array_equal(runs[other], runs["fused"])
         say(f"[c2-sched] {other} == fused with overlap, bit for bit: {same}")
@@ -1913,10 +2021,10 @@ def _mla_layer0_latents(m, prompt):
 def mla_kernel_phase(m, n_new: int) -> dict:
     """Phase 11: ``paged_mla`` against its plain version on the model's own
     pools after a chunked prefill (T = 1, 4, 32; NaN in every pool row no
-    valid position reads) and on synthetic 4 x 4096-token pools; kv_topk
-    and unary_decode on the prefill's c and kr, bit for bit."""
+    valid position reads) and on synthetic 4 x 4096-token pools; kv_topk,
+    kv_encode, kv_view and unary_decode on the prefill's c and kr, bit for
+    bit."""
     import torch
-    from repro_torch.kernels import kv_topk as KT
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import unary_decode as UD
     from repro_torch.models.attention import _mla_scale, _suffix_valid
@@ -2044,21 +2152,16 @@ def mla_kernel_phase(m, n_new: int) -> dict:
                 f"max abs err {err:.3g}")
     del cases, synth, pools, nan_pools
     torch.cuda.empty_cache()
-    # the KV encode's selection and the exponent decode on the prefill's
-    # own latents (layer 0): c at d = 512, kr at d = 64
+    # the KV encode (selection alone and whole), its views and the
+    # exponent decode on the prefill's own latents (layer 0): c at
+    # d = 512, kr at d = 64
     c, kr = _mla_layer0_latents(m, m["prompt"])
     dbook = KC.default_kv_codebook("cuda")
     codec = []
     for nm, x, d in (("c", c, lat), ("kr", kr, rope)):
         x = x.reshape(-1, d).contiguous()
         r, kk = x.shape[0], cass.kv_keep(d)
-        mag = x.float().abs()
-        codec.append(codec_row(
-            "kv_topk", f"prefill {nm} (layer 0) {r}x{d}->{kk}",
-            lambda x=x, kk=kk: KT.kv_topk(x, kk),
-            lambda x=x, kk=kk: KT.kv_topk_plain(x, kk),
-            r * (2 * d + d // 8 + 2 * d), r * d * int(math.log2(d)),
-            library=lambda mag=mag, kk=kk: torch.topk(mag, kk, dim=-1)))
+        codec += kv_codec_rows(cass, x, d, f"prefill {nm} (layer 0)", dbook)
         words = KC.encode_store(cass, x, d, dbook)["spec"]["exp_words"]
         words = words.reshape(-1, words.shape[-1]).contiguous()
         w = words.shape[1]
@@ -2151,12 +2254,14 @@ def mla_engine_phase(m, args) -> dict:
     cyc, mats = st["cycles"], packed_matrices(packed)
     drafts = st["draft_passes"]
     expect = {"draft_matmul": drafts * (7 * layers + 1), "paged_mla": 0,
-              "mx_decode": 0, "mx_view": 0, "kv_topk": 2 * (1 + cyc),
-              # the KV target view per layer per verify pass, the draft
-              # view once per cycle, kv_b's draft view per layer per draft
-              # pass; every weight's target view once per target pass
-              "unary_decode": 2 * layers * cyc + 2 * cyc
-              + drafts * layers * _kv_b_pieces(packed),
+              "mx_decode": 0, "mx_view": 0, "kv_topk": 0,
+              "kv_encode": 2 * (1 + cyc),
+              # the KV target view per layer per verify pass and the draft
+              # view once per cycle (kv_view); kv_b's draft view per layer
+              # per draft pass (unary_decode, in ROW_CHUNK pieces); every
+              # weight's target view once per target pass
+              "kv_view": 2 * layers * cyc + 2 * cyc,
+              "unary_decode": drafts * layers * _kv_b_pieces(packed),
               "target_decode": mats * (1 + cyc)}
     check_launches("mla-engine", launches, expect)
     say(f"[mla-engine] spec: cycles {cyc}, acceptance "
@@ -2201,12 +2306,13 @@ def mla_sched_phase(m, args, eng: dict) -> dict:
     expect = {"draft_matmul": drafts * (7 * layers + 1),
               "paged_mla": (targets + drafts) * layers,
               "paged_gqa": 0, "paged_gqa_packed": 0, "mx_decode": 0,
-              "mx_view": 0, "kv_topk": 2 * targets,
+              "mx_view": 0, "kv_topk": 0, "kv_encode": 2 * targets,
               # per target pass the KV target view per layer (and every
               # weight's target view, target_decode); per draft pass the
-              # KV draft view and kv_b per layer
-              "unary_decode": targets * 2 * layers
-              + drafts * layers * (2 + _kv_b_pieces(packed)),
+              # KV draft view per layer (kv_view) and kv_b per layer
+              # (unary_decode)
+              "kv_view": (targets + drafts) * 2 * layers,
+              "unary_decode": drafts * layers * _kv_b_pieces(packed),
               "target_decode": targets * packed_matrices(packed)}
     say(f"[mla-sched] launches {launches}; expected {expect}: "
         f"{launches == expect} (paged_mla: (target passes {targets} + draft "
@@ -2417,7 +2523,7 @@ def run(args) -> None:
     # 14. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
         '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
-        '"target_decode", "mx_view"]')
+        '"target_decode", "mx_view", "kv_encode", "kv_view"]')
     line = {"kernels": [{
         "name": "draft_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/draft_matmul.cu",
@@ -2459,16 +2565,24 @@ def run(args) -> None:
     # the codec kernels at their main-path shape: the w_gate target lanes
     # (mx_decode), a prefill's K (kv_topk), w_gate's kept exponent regions
     # (unary_decode); launches from the C-2 run (mx_decode, kv_topk) and
-    # from phase 6's C-1 run (unary_decode). The C-2 path decodes through
-    # mx_view, so the standalone mx_decode's count there is 0: only its
-    # codec rows launch it
+    # from phase 12's MLA run (unary_decode: kv_b's draft view). The C-2
+    # path decodes through mx_view, so the standalone mx_decode's count
+    # there is 0: only its codec rows launch it; the C-1 paths encode and
+    # view their KV stores through kv_encode and kv_view
     for name, file, line_no, case, launches in (
             ("mx_decode", "mx_decode", 46, "w_gate target",
              c2["launches"]["mx_decode"]),
             ("kv_topk", "kv_topk", 43, "prefill K",
              c2["launches"]["kv_topk"]),
             ("unary_decode", "unary_decode", 51, "w_gate kept",
-             main["codec"]["unary_decode"])):
+             mla_e["launches"]["unary_decode"]),
+            # kv_encode replaces kv_topk with the reference's format_tensor
+            # chain, kv_view unary_decode with its draft_tensor /
+            # target_tensor chain; no PyTorch call computes either
+            ("kv_encode", "kv_topk", 43, "prefill K",
+             main["codec"]["kv_encode"]),
+            ("kv_view", "unary_decode", 51, "prefill K (layer 0) store "
+             "target", main["codec"]["kv_view"])):
         rows = [r for r in codec if r["kernel"] == name]
         row = next(r for r in rows if r["case"].startswith(case))
         line["kernels"].append({

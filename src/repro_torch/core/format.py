@@ -28,7 +28,11 @@ to, and what CPU tensors run.
 
 Selections that span the whole vector with magnitude scores (the KV
 encode) run through ``kernels/kv_topk.py``, and the unary exponent decode
-through ``kernels/unary_decode.py`` (``core/coding.py``). A Cassandra-1
+through ``kernels/unary_decode.py`` (``core/coding.py``). On the card a
+Cassandra-1 KV store's encode and each of its views are one launch of
+``kv_topk.kv_encode`` / ``unary_decode.kv_view``
+(``serving/kvcache.py``); ``format_tensor`` / ``draft_tensor`` /
+``target_tensor`` are the chains they are held to. A Cassandra-1
 weight's target view on the card is one launch of that module's
 ``target_decode``, which rebuilds the whole weight from its packed leaves;
 ``target_weight_plain`` is the chain of plain steps it is held to, and

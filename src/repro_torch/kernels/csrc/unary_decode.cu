@@ -78,6 +78,48 @@
 //     warp's 1 KB coalesced.
 // The product that follows stays outside the kernel (torch.matmul on this
 // view in models/layers.py::dense, as the reference leaves it to XLA).
+//
+// `kv_view`: a Cassandra-1 KV store's draft or target view, (rows, D) bf16,
+// in one launch, where the reference runs `format.draft_tensor` /
+// `target_tensor` over the store (`serving/kvcache.py::read_store`): the
+// chain of `decode_exponents` (here with 8-bit corrections, one byte a kept
+// value, and a cache-global book passed apart from the store) and
+// `pruning.desparsify`. Bit for bit what that chain computes:
+//   * mode 0: exponent = book[rank] with the ranks above; mode 1: an
+//     exp_bits-wide delta below emax, plus its correction in the target view
+//     (none where it is 255; exponent 0 for the escape code with correction
+//     255), clamped to [0, 255]; the draft view reads the deltas alone;
+//   * kept value = sign | exponent | high mantissa | low mantissa (the
+//     draft view: low mantissa 0); the target view's pruned values are their
+//     raw 16-bit patterns (NaN payloads kept); the draft view's pruned
+//     positions are 0;
+//   * scattered by the bitmap, the indices clamped at keep - 1 and D - keep
+//     - 1 as `desparsify` clamps them.
+// Bound: the store's leaves read once (the draft view reads only `spec`:
+// bitmap, codes, exponent region, mode, emax) and the bf16 view written once.
+// The design: a CTA owns a run of `chunk` vectors (`kv_view_plan` in
+// unary_decode.py: a multiple of 16, so each leaf's run starts on a 16-byte
+// boundary of an aligned leaf) and first copies each leaf's run, which is
+// contiguous, into shared memory with cp.async (16-byte pieces on 16-byte
+// aligned leaves, 4-byte on 4-byte aligned ones, bytes otherwise; nothing
+// past the run is read); then the vectors of the run are decoded from
+// shared memory by lane groups: D/16 lanes a vector (8 at D = 128, so a
+// warp decodes 4 at once), lane g owning 16 output positions (8 g .. 8 g + 7
+// and D/2 + 8 g .., so that a store instruction writes each group's half
+// vector as contiguous bytes, not half sectors at a 32-byte stride) and a
+// run of ceil(keep / (D/16)) kept values. A vector's fixed costs (its
+// scans, its run's start, the loop) are shared by 16 positions a lane, where
+// a warp a vector spent them on D/32. A KV region is short (8 words at D =
+// 128), so the position pass above, which walks each word's ones on the
+// lane that holds it, would leave most lanes idle for as many steps as the
+// densest word has ones; here each lane finds the start of its run (a group
+// scan of the words' __popc counts, a binary search of those counts for the
+// word holding the end of the code before the run) and walks the run's set
+// bits in order (__ffs and a clear a code). The lane builds its run of kept
+// values into a bf16 array (4-bit codes from one funnel-shifted window a
+// stream), then gathers its 16 positions by a group scan of the bitmap's
+// __popc and writes them as two 16-byte stores. The grid is persistent, and
+// each CTA streams its runs through a two-stage cp.async ring.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,7 +131,7 @@ constexpr int kWarps = 8;                 // both kernels: 8 warps a CTA
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxRank = 31;
 constexpr int kRegions = 8;
-constexpr int kMinCtas = 4;               // target_decode: CTAs an SM holds
+constexpr int kMinCtas = 4;               // target_decode, kv_view: CTAs an SM
 
 __device__ __forceinline__ int clip_rank(int r) {
   return min(max(r, 0), kMaxRank);
@@ -651,6 +693,401 @@ cudaError_t launch_target(const Target& a, unsigned ctas, size_t smem_bytes,
                                                        stream);
 }
 
+// ---------------------------------------------------------------------------
+// kv_view: a C-1 KV store -> its bf16 (rows, D) draft or target view
+// ---------------------------------------------------------------------------
+
+enum KvLeaf { kvBitmap, kvSignMant, kvExp, kvMode, kvEmax, kvMantLo, kvCorr,
+              kvPruned, kvLeaves };
+
+struct KvView {
+  const uint8_t* src[kvLeaves];   // (rows, bpv[r]) bytes each; null if absent
+  int bpv[kvLeaves];              // bytes a vector (0: not read)
+  int gran[kvLeaves];             // copy piece: 16, 4 or 1 bytes
+  int soff[kvLeaves];             // byte offset of the run in shared memory
+  const uint8_t* book;            // exp_of_rank, >= 32 entries
+  uint16_t* out;                  // (rows, D) bf16 bit patterns
+  long long rows;
+  int chunk, keep, trunc, eb, sw, ew, mw;
+  int stage_bytes, scratch_bytes; // shared memory: runs, then per-warp scratch
+};
+
+// A leaf's run of vectors [v0, v0 + nv) into shared memory: cp.async pieces
+// of `gran` bytes, the bytes past the last whole piece one at a time.
+__device__ __forceinline__ void kv_stage(const KvView& a, int r, uint8_t* smem,
+                                         long long v0, int nv) {
+  const int n = nv * a.bpv[r];
+  if (n == 0) return;
+  const uint8_t* src = a.src[r] + v0 * a.bpv[r];
+  uint8_t* dst = smem + a.soff[r];
+  const int g = a.gran[r];
+  int done = 0;
+  if (g == 16) {
+    const int np = n >> 4;
+    for (int p = threadIdx.x; p < np; p += kThreads)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       smem_u32(dst + 16 * p)), "l"(src + 16 * p));
+    done = np << 4;
+  } else if (g == 4) {
+    const int np = n >> 2;
+    for (int p = threadIdx.x; p < np; p += kThreads)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                       smem_u32(dst + 4 * p)), "l"(src + 4 * p));
+    done = np << 2;
+  }
+  for (int i = done + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+}
+
+// Exponent of code j of a mode-1 region with 8-bit corrections (C null: the
+// draft view, or a store without corrections).
+__device__ __forceinline__ uint32_t kv_delta_exp(const uint32_t* R,
+                                                 const uint8_t* C, int j,
+                                                 int eb, int emax) {
+  const int esc = (1 << eb) - 1;
+  const int code = static_cast<int>(bits_at(R, j * eb, esc));
+  int delta = code;
+  bool zero = code == esc;
+  if (C != nullptr) {
+    const int c = C[j];
+    delta += c == 255 ? 0 : c;
+    zero = zero && c == 255;
+  }
+  return zero ? 0u : static_cast<uint32_t>(min(max(emax - delta, 0), 255));
+}
+
+// Position of the (r+1)-th set bit of x (r < __popc(x)).
+__device__ __forceinline__ int nth_set(uint32_t x, int r) {
+  int pos = 0, c = __popc(x & 0xFFFFu);
+  if (r >= c) { r -= c; pos += 16; x >>= 16; }
+  c = __popc(x & 0xFFu);
+  if (r >= c) { r -= c; pos += 8; x >>= 8; }
+  c = __popc(x & 0xFu);
+  if (r >= c) { r -= c; pos += 4; x >>= 4; }
+  c = __popc(x & 0x3u);
+  if (r >= c) { r -= c; pos += 2; x >>= 2; }
+  return pos + (r >= static_cast<int>(x & 1u));
+}
+
+// Exponents of codes j0 .. j0 + n - 1 (n >= 1) of a unary region of W words
+// at R, whose inclusive per-word counts of ones are incl[0 .. W): the lane
+// finds the word of the j0-th one (the j0 - 1 code's end) by a binary search
+// of incl, then walks the set bits of its run in order. pos_j is the
+// position of the (j+1)-th one, W*32 past the region's ones, pos_-1 = -1.
+template <int RUN>
+__device__ __forceinline__ void unary_walk(const uint32_t* R, int W,
+                                           const int* incl,
+                                           const uint8_t* book, int j0, int n,
+                                           uint32_t (&e)[RUN]) {
+  const int end = W * 32;
+  const int j = j0 > 0 ? j0 - 1 : 0;
+  int lo = 0, hi = W;                       // the first word with incl > j
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (incl[mid] > j) hi = mid;
+    else lo = mid + 1;
+  }
+  int w = lo, pos = end;
+  uint32_t x = 0;
+  if (w < W) {
+    x = R[w];
+    const int b = nth_set(x, j - (w > 0 ? incl[w - 1] : 0));
+    pos = 32 * w + b;
+    x &= ~((2u << b) - 1u);                 // the ones up to b are taken
+  }
+  int prev = -1;
+  if (j0 > 0) prev = pos;
+#pragma unroll
+  for (int k = 0; k < RUN; ++k) {
+    if (k < n) {
+      if (k > 0 || j0 > 0) {                // the next one after pos
+        while (x == 0u && w < W) {
+          ++w;
+          x = w < W ? R[w] : 0u;
+        }
+        if (w < W) {
+          pos = 32 * w + __ffs(x) - 1;
+          x &= x - 1u;
+        } else {
+          pos = end;
+        }
+      }
+      e[k] = book[clip_rank(pos - prev - 1)];
+      prev = pos;
+    }
+  }
+}
+
+// Kept values j0 .. j0 + n - 1 (exponents e[]) into vals; the low mantissa
+// from ML (the target view) or 0 (ML null). FAST: 4-bit codes, the run's
+// codes from one 64-bit window per stream (the stage pads every run by 16
+// bytes, so words w + 1 and w + 2 are readable).
+template <bool FAST, int RUN>
+__device__ __forceinline__ void kv_kept_run(const uint32_t* SM,
+                                            const uint32_t* ML, int j0, int n,
+                                            int tr, const uint32_t (&e)[RUN],
+                                            uint16_t* vals) {
+  if constexpr (FAST) {
+    const int w = j0 >> 3, sh = (j0 & 7) * 4;
+    const uint32_t s0 = __funnelshift_r(SM[w], SM[w + 1], sh);
+    const uint32_t s1 = RUN > 8 ? __funnelshift_r(SM[w + 1], SM[w + 2], sh)
+                                : 0u;
+    uint32_t m0 = 0u, m1 = 0u;
+    if (ML != nullptr) {
+      m0 = __funnelshift_r(ML[w], ML[w + 1], sh);
+      if (RUN > 8) m1 = __funnelshift_r(ML[w + 1], ML[w + 2], sh);
+    }
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) {
+      if (k < n) {
+        const uint32_t c = ((k < 8 ? s0 : s1) >> (4 * (k & 7))) & 15u;
+        const uint32_t lo = ((k < 8 ? m0 : m1) >> (4 * (k & 7))) & 15u;
+        vals[j0 + k] = static_cast<uint16_t>((c >> 3) << 15 | e[k] << 7 |
+                                             (c & 7u) << 4 | lo);
+      }
+    }
+  } else {
+    const int ws = 8 - tr, tk = 7 - tr;
+    const uint32_t smask = (1u << ws) - 1u, tmask = (1u << tk) - 1u;
+    const uint32_t lmask = (1u << tr) - 1u;
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) {
+      if (k < n) {
+        const int j = j0 + k;
+        const uint32_t c = bits_at(SM, j * ws, smask);
+        const uint32_t lo = ML != nullptr ? bits_at(ML, j * tr, lmask) : 0u;
+        vals[j] = static_cast<uint16_t>(((c >> tk) & 1u) << 15 | e[k] << 7 |
+                                        (((c & tmask) << tr) | lo) & 0x7Fu);
+      }
+    }
+  }
+}
+
+// Inclusive sum over the G lanes of a lane group (gl: the lane's index in
+// its group).
+template <int G>
+__device__ __forceinline__ int group_incl_sum(int v, int gl) {
+#pragma unroll
+  for (int d = 1; d < G; d <<= 1) {
+    const int a = __shfl_up_sync(kFull, v, d, G);
+    if (gl >= d) v += a;
+  }
+  return v;
+}
+
+// The vectors [v0, v0 + nv) of one staged run, decoded by lane groups. vals
+// holds a vector's kept values at [0, K), its pruned values at [K, D) (the
+// target view) and a zero at [D] (the draft view's pruned positions).
+template <int DPL, bool TARGET, bool FAST, int RUN>
+__device__ __forceinline__ void kv_view_run(const KvView& a,
+                                            const uint8_t* kv_smem,
+                                            const uint8_t* book, long long v0,
+                                            int nv, int warp, int grp, int gl,
+                                            int j0, int n, int* incl,
+                                            uint16_t* vals) {
+  constexpr int D = DPL * 32;
+  constexpr int G = D / 16, NG = 32 / G;
+  const int K = a.keep, P = D - K;
+  for (int vb = warp * NG; vb < nv; vb += kWarps * NG) {
+    const bool live = vb + grp < nv;
+    const int v = live ? vb + grp : vb;
+    const uint32_t* BM =
+        reinterpret_cast<const uint32_t*>(kv_smem + a.soff[kvBitmap]) +
+        v * DPL;
+    const uint32_t* SM =
+        reinterpret_cast<const uint32_t*>(kv_smem + a.soff[kvSignMant]) +
+        v * a.sw;
+    const uint32_t* E =
+        reinterpret_cast<const uint32_t*>(kv_smem + a.soff[kvExp]) + v * a.ew;
+    const int md = kv_smem[a.soff[kvMode] + v];
+    const int em = kv_smem[a.soff[kvEmax] + v];
+    const uint32_t* ML = nullptr;
+    const uint8_t* C = nullptr;
+    if constexpr (TARGET) {
+      if (a.bpv[kvMantLo] > 0)
+        ML = reinterpret_cast<const uint32_t*>(kv_smem + a.soff[kvMantLo]) +
+             v * a.mw;
+      if (a.bpv[kvCorr] > 0) C = kv_smem + a.soff[kvCorr] + v * K;
+    }
+    // 1. the region's per-word counts of ones (every group, whatever its
+    // mode: the scan's shuffles need the whole warp), then lane gl's run of
+    // kept exponents: a walk over the unary region's ones, or mode-1 deltas
+    int base = 0;
+    for (int c0 = 0; c0 < a.ew; c0 += G) {
+      const int wi = c0 + gl;
+      const int cnt = wi < a.ew ? __popc(E[wi]) : 0;
+      const int in = group_incl_sum<G>(cnt, gl) + base;
+      if (wi < a.ew) incl[wi] = in;
+      base = __shfl_sync(kFull, in, G - 1, G);
+    }
+    __syncwarp();
+    uint32_t ex[RUN];
+    if (md == 0) {
+      if (n > 0) unary_walk<RUN>(E, a.ew, incl, book, j0, n, ex);
+    } else {
+#pragma unroll
+      for (int k = 0; k < RUN; ++k)
+        if (k < n) ex[k] = kv_delta_exp(E, C, j0 + k, a.eb, em);
+    }
+    // 2. the kept values, and (the target view) the pruned values after
+    // them
+    if (n > 0) kv_kept_run<FAST, RUN>(SM, ML, j0, n, a.trunc, ex, vals);
+    if constexpr (TARGET) {                 // two values a word: K, P even
+      const uint32_t* p2 = reinterpret_cast<const uint32_t*>(
+          kv_smem + a.soff[kvPruned] + v * 2 * P);
+      uint32_t* d2 = reinterpret_cast<uint32_t*>(vals + K);
+      for (int i = gl; i < P / 2; i += G) d2[i] = p2[i];
+    }
+    __syncwarp();
+    // 3. lane gl's 16 positions: 8 in each half of the vector (8 gl .. and
+    // D/2 + 8 gl ..), so that each of its two 16-byte stores joins the
+    // group's into D contiguous bytes; the kept values before each piece
+    // by one group scan of both halves' __popc counts. A set bit reads the
+    // next kept value, a clear one the next pruned value (the target view)
+    // or the zero at [D]; indices clamped at K - 1 and P - 1, as
+    // `desparsify` clamps them, only where a bitmap needs it.
+    uint32_t bits[2];
+    int cnt = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = h * (D / 2) + 8 * gl;
+      bits[h] = (BM[p >> 5] >> (p & 31)) & 0xFFu;
+      cnt |= __popc(bits[h]) << (16 * h);
+    }
+    const int in = group_incl_sum<G>(cnt, gl);
+    const int ex0 = in - cnt;
+    const int half = __shfl_sync(kFull, in, G - 1, G) & 0xFFFF;
+    const bool has_p = TARGET && P > 0;
+    uint4* out = reinterpret_cast<uint4*>(a.out + (v0 + v) * D);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p0 = h * (D / 2) + 8 * gl;
+      int kb = h == 0 ? ex0 & 0xFFFF : half + (ex0 >> 16);
+      const int kend = kb + __popc(bits[h]);
+      const bool clamp = kend > K || (has_p && p0 + 8 - kend > P);
+      uint32_t o[8];
+      if (!clamp) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const bool set = (bits[h] >> i) & 1u;
+          o[i] = vals[set ? kb : has_p ? K + p0 + i - kb : D];
+          kb += set;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const bool set = (bits[h] >> i) & 1u;
+          o[i] = vals[set ? min(kb, K - 1)
+                          : has_p ? K + min(p0 + i - kb, P - 1) : D];
+          kb += set;
+        }
+      }
+      if (live)
+        out[h * G + gl] = make_uint4(__byte_perm(o[0], o[1], 0x5410),
+                                     __byte_perm(o[2], o[3], 0x5410),
+                                     __byte_perm(o[4], o[5], 0x5410),
+                                     __byte_perm(o[6], o[7], 0x5410));
+    }
+    __syncwarp();                     // incl and vals free for the next vector
+  }
+}
+
+// Run q of the store (vectors [q * chunk, q * chunk + nv)) into a stage.
+__device__ __forceinline__ void kv_stage_run(const KvView& a, uint8_t* stage,
+                                             long long q) {
+  const long long v0 = q * a.chunk;
+  const int nv = static_cast<int>(min(static_cast<long long>(a.chunk),
+                                      a.rows - v0));
+#pragma unroll
+  for (int r = 0; r < kvLeaves; ++r) kv_stage(a, r, stage, v0, nv);
+  asm volatile("cp.async.commit_group;" ::);
+}
+
+// A group of G = D/16 lanes owns a vector (lane gl: output positions
+// 8 gl .. 8 gl + 7 and D/2 + 8 gl .., and kept values gl * krun ..), so a
+// warp decodes 32/G vectors at once. Every lane runs every group step, for a vector of the
+// run or, past its end, again for the warp's first (nothing stored).
+// The grid is persistent (`kv_view_plan`): CTA b decodes runs b, b + grid,
+// ... through a two-stage ring, the next run's copies in flight while the
+// current one decodes.
+template <int DPL, bool TARGET, bool FAST, int RUN>
+__global__ void __launch_bounds__(kThreads, kMinCtas) kv_view_kernel(KvView a) {
+  constexpr int D = DPL * 32;
+  constexpr int G = D / 16, NG = 32 / G;
+  extern __shared__ __align__(16) uint8_t kv_smem[];
+  __shared__ uint8_t book[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / G, gl = lane % G;
+  const long long runs = (a.rows + a.chunk - 1) / a.chunk;
+  if (threadIdx.x < 32) book[threadIdx.x] = a.book[threadIdx.x];
+  long long q = blockIdx.x;
+  if (q < runs) kv_stage_run(a, kv_smem, q);
+  const int K = a.keep;
+  const int krun = (K + G - 1) / G;
+  const int j0 = gl * krun, n = max(0, min(krun, K - j0));
+  uint8_t* scratch =
+      kv_smem + 2 * a.stage_bytes + (warp * NG + grp) * a.scratch_bytes;
+  int* incl = reinterpret_cast<int*>(scratch);
+  uint16_t* vals = reinterpret_cast<uint16_t*>(scratch + 4 * a.ew);
+  if (gl == 0) vals[D] = 0;                   // the zero slot, never written
+  for (int it = 0; q < runs; q += gridDim.x, ++it) {
+    if (q + gridDim.x < runs) {
+      kv_stage_run(a, kv_smem + ((it + 1) & 1) * a.stage_bytes,
+                   q + gridDim.x);
+      asm volatile("cp.async.wait_group 1;" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::);
+    }
+    __syncthreads();                          // the run's copies landed
+    const uint8_t* st = kv_smem + (it & 1) * a.stage_bytes;
+    const long long v0 = q * a.chunk;
+    const int nv = static_cast<int>(min(static_cast<long long>(a.chunk),
+                                        a.rows - v0));
+    kv_view_run<DPL, TARGET, FAST, RUN>(a, st, book, v0, nv, warp, grp, gl,
+                                        j0, n, incl, vals);
+    __syncthreads();                          // the stage is free again
+  }
+}
+
+template <int DPL, int RUN>
+cudaError_t launch_kv_view_run(const KvView& a, bool target, int ctas,
+                               size_t smem_bytes, cudaStream_t stream) {
+  static size_t granted[4] = {0, 0, 0, 0};  // dynamic smem granted so far
+  // 4-bit codes (FAST) with any run; other widths only with runs of 16
+  const bool fast = a.trunc == 4;
+  const int which = 2 * target + fast;
+  const auto kernel =
+      target ? (fast || RUN != 16 ? kv_view_kernel<DPL, true, true, RUN>
+                                  : kv_view_kernel<DPL, true, false, 16>)
+             : (fast || RUN != 16 ? kv_view_kernel<DPL, false, true, RUN>
+                                  : kv_view_kernel<DPL, false, false, 16>);
+  // the opt-in above the default 48 KB counts the static shared memory
+  // too, so every size takes it (once per kernel and size)
+  if (smem_bytes > granted[which]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes));
+    if (e != cudaSuccess) return e;
+    granted[which] = smem_bytes;
+  }
+  kernel<<<ctas, kThreads, smem_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// A lane's run of kept values is ceil(keep / (D/16)) <= 16. The paper's
+// keep with 4-bit codes (0.6 D in multiples of 16: runs of 10 from D = 128
+// up, 8 below) has a kernel of its exact run; other formats take runs of up
+// to 16 with a bound.
+template <int DPL>
+cudaError_t launch_kv_view(const KvView& a, bool target, int ctas,
+                           size_t smem_bytes, cudaStream_t stream) {
+  constexpr int kPaperRun = DPL >= 4 ? 10 : 8;
+  const int krun = (a.keep + DPL * 2 - 1) / (DPL * 2);
+  if (a.trunc == 4 && krun <= kPaperRun)
+    return launch_kv_view_run<DPL, kPaperRun>(a, target, ctas, smem_bytes,
+                                              stream);
+  return launch_kv_view_run<DPL, 16>(a, target, ctas, smem_bytes, stream);
+}
+
 }  // namespace
 
 // words (rows,W) u32 -> out (rows,K) int32 ranks in [0, 31]; K <= 512 and
@@ -758,6 +1195,83 @@ extern "C" int target_decode_launch(
     case 128: e = launch_target<4>(a, ctas, smem_bytes, s); break;
     case 64: e = launch_target<2>(a, ctas, smem_bytes, s); break;
     default: e = launch_target<1>(a, ctas, smem_bytes, s); break;
+  }
+  return static_cast<int>(e);
+}
+
+// A Cassandra-1 KV store of `rows` vectors of D values (each leaf (rows, 1,
+// ·) flattened) -> out (rows, D) bf16, its draft (target == 0) or target
+// view. Spec: bitmap (rows,D/32) u32 · signmant (rows,sw) u32 · exp_words
+// (rows,ew) u32 · mode, emax (rows,) u8; book: exp_of_rank (>= 32) u8;
+// keep a multiple of 16 (pruning.KV_KEEP_MULTIPLE), D in 32 .. 512.
+// Target only: mant_lo (rows,mw) u32 (null when trunc == 0) · corr
+// (rows,keep) u8 or null · pruned (rows,D-keep) 16-bit patterns (null when
+// keep == D). sw, ew, mw are ceil(keep * width / 32) for widths 8 - trunc,
+// exp_bits and trunc; runs of `chunk` vectors (a multiple of 16), `ctas`
+// persistent CTAs. Returns the CUDA error of the launch (0 on success).
+extern "C" int kv_view_launch(const void* bitmap, const void* signmant,
+                              const void* exp_words, const void* mode,
+                              const void* emax, const void* book,
+                              const void* mant_lo, const void* corr,
+                              const void* pruned, void* out, int rows, int D,
+                              int keep, int trunc, int exp_bits, int target,
+                              int chunk, int ctas, void* stream) {
+  const int P = D - keep;
+  if (rows < 0 || keep < 16 || keep > D || keep % 16 != 0 || trunc < 0 ||
+      trunc > 7 || exp_bits < 1 || exp_bits > 8 || chunk < 16 ||
+      chunk % 16 != 0 || ctas < 1 || book == nullptr ||
+      (target && (trunc > 0) != (mant_lo != nullptr)) ||
+      (target && (P > 0) != (pruned != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  KvView a{};
+  a.sw = (keep * (8 - trunc) + 31) / 32;
+  a.ew = (keep * exp_bits + 31) / 32;
+  a.mw = (keep * trunc + 31) / 32;
+  if (a.ew > 1023) return static_cast<int>(cudaErrorInvalidValue);
+  const void* src[kvLeaves] = {bitmap, signmant, exp_words, mode, emax,
+                               target ? mant_lo : nullptr,
+                               target ? corr : nullptr,
+                               target ? pruned : nullptr};
+  const int bpv[kvLeaves] = {D / 8, 4 * a.sw, 4 * a.ew, 1, 1, 4 * a.mw, keep,
+                             2 * P};
+  int off = 0;
+  for (int r = 0; r < kvLeaves; ++r) {
+    a.src[r] = static_cast<const uint8_t*>(src[r]);
+    a.bpv[r] = src[r] != nullptr ? bpv[r] : 0;
+    a.soff[r] = off;
+    const uintptr_t u = reinterpret_cast<uintptr_t>(src[r]);
+    a.gran[r] = u % 16 == 0 ? 16 : u % 4 == 0 ? 4 : 1;
+    if (r <= kvEmax && src[r] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the run, rounded to 16 bytes, and 16 bytes the bit windows may read
+    off += ((chunk * a.bpv[r] + 15) & ~15) + 16;
+  }
+  a.stage_bytes = off;
+  // per lane group (D/16 lanes, one vector at a time): the unary region's
+  // per-word counts, then the kept and pruned values and a zero
+  a.scratch_bytes = (4 * a.ew + 2 * (D + 1) + 15) & ~15;
+  a.book = static_cast<const uint8_t*>(book);
+  a.out = static_cast<uint16_t*>(out);
+  a.rows = rows;
+  a.chunk = chunk;
+  a.keep = keep;
+  a.trunc = trunc;
+  a.eb = exp_bits;
+  const size_t smem_bytes = 2 * static_cast<size_t>(a.stage_bytes) +
+                            static_cast<size_t>(kThreads / (D / 16)) *
+                                a.scratch_bytes;
+  if (smem_bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool t = target != 0;
+  cudaError_t e;
+  switch (D) {
+    case 32: e = launch_kv_view<1>(a, t, ctas, smem_bytes, s); break;
+    case 64: e = launch_kv_view<2>(a, t, ctas, smem_bytes, s); break;
+    case 128: e = launch_kv_view<4>(a, t, ctas, smem_bytes, s); break;
+    case 256: e = launch_kv_view<8>(a, t, ctas, smem_bytes, s); break;
+    case 512: e = launch_kv_view<16>(a, t, ctas, smem_bytes, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);
 }

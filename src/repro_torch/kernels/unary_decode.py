@@ -18,8 +18,9 @@ give ranks the caller discards (``core/coding.py::decode_exponents``).
   the packed paged-attention kernel's plain decode).
 * ``unary_decode`` — the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches the kernel (counted in ``unary_decode.launches``)
-  or raises. The KV views and the C-1 draft-view weight decode call it
-  through ``decode_exponents``.
+  or raises. The C-1 draft-view weight decode (MLA's kv_b on the card)
+  and the plain chains of the C-1 views call it through
+  ``decode_exponents``.
 * ``target_decode`` — a packed Cassandra-1 weight's exact (target) view,
   ``(n_out, n_in)`` bf16, in one launch (``target_decode.launches``): the
   unary ranks through the codebook, the mode-1 deltas with their
@@ -28,6 +29,13 @@ give ranks the caller discards (``core/coding.py::decode_exponents``).
   the chain ``format.target_weight_plain``, which ``format.target_weight``
   runs for CPU tensors. ``target_plan`` is the launch's cut of the
   weight's superblocks.
+* ``kv_view`` — a Cassandra-1 KV store's draft or target view, ``(...,
+  d)`` bf16, in one launch (``kv_view.launches``): what
+  ``serving/kvcache.py::read_store`` runs for such a store on the card,
+  with the cache-global book, 8-bit corrections and raw pruned values. It
+  takes CUDA tensors only: its plain version is the chain
+  ``kvcache.read_store_plain``. ``kv_view_plan`` is the launch's cut of
+  the vectors.
 """
 from __future__ import annotations
 
@@ -190,3 +198,99 @@ def target_decode(spec: dict, verif: dict, cass,
 
 
 target_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kv_view: a C-1 KV store's draft or target view in one launch
+# ---------------------------------------------------------------------------
+
+KV_HEAD_DIMS = (32, 64, 128, 256, 512)
+
+
+KV_VIEW_CTAS = 4 * build.SM_COUNT      # one wave: 4 CTAs an SM holds
+
+
+def kv_view_plan(rows: int, d: int) -> tuple[int, int]:
+    """(vectors per run, CTAs) for a store of ``rows`` vectors of ``d``
+    values. A run is a multiple of 16 vectors (so every leaf's run starts
+    on a 16-byte boundary), at most 8192 values (two vectors for each of
+    a CTA's lane groups of d/16 lanes), and small enough that the runs
+    fill ``KV_VIEW_CTAS`` CTAs where the store allows. The CTAs are
+    persistent: CTA c decodes runs c, c + CTAs, ...; run q holds vectors
+    [q * chunk, (q + 1) * chunk)."""
+    fill = -(-rows // KV_VIEW_CTAS)
+    chunk = min(max(16, 8192 // d), max(16, -(-fill // 16) * 16))
+    runs = -(-rows // chunk)
+    return chunk, min(runs, KV_VIEW_CTAS)
+
+
+def _kv_leaf(tree: dict, name: str, dtype, shape: tuple):
+    """A checked leaf on the card, copied when it is not contiguous (a
+    leaf at any byte address is read as it lies: the kernel copies in
+    pieces its alignment allows, never past the leaf)."""
+    t = tree[name]
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}, not on the card")
+    t = t.contiguous()
+    build.check(t, name, dtype, shape)
+    return t
+
+
+def kv_view(spec: dict, verif: dict | None, exp_of_rank: torch.Tensor, *,
+            d: int, keep: int, trunc: int, exp_bits: int) -> torch.Tensor:
+    """The draft (``verif`` None) or target view of a Cassandra-1 KV store
+    whose leaves are (..., 1, ·) as ``kvcache.encode_store`` writes them,
+    as (..., d) bf16; ``exp_of_rank`` is the cache-global book (at least
+    32 uint8 entries).
+
+    CUDA tensors launch the kernel (counted in ``kv_view.launches``) or
+    raise; other devices raise (``kvcache.read_store`` runs the plain
+    chain for CPU tensors)."""
+    bm = spec["bitmap"]
+    if bm.device.type != "cuda":
+        raise ValueError(f"kv_view: unsupported device {bm.device} (the "
+                         f"plain chain is kvcache.read_store_plain)")
+    if (d not in KV_HEAD_DIMS or not 0 < keep <= d or keep % 16
+            or not 0 <= trunc <= 7 or not 1 <= exp_bits <= 8):
+        raise ValueError(f"kv_view: d={d}, keep={keep}, trunc={trunc}, "
+                         f"exp_bits={exp_bits}; the kernel takes d in "
+                         f"{KV_HEAD_DIMS}, keep <= d a multiple of 16, "
+                         f"trunc in [0, 7] and exp_bits in [1, 8]")
+    lead = tuple(bm.shape[:-2])
+    i32, u8 = torch.int32, torch.uint8
+
+    def words(width: int) -> tuple:
+        return (*lead, 1, (keep * width + 31) // 32)
+
+    ptrs = [_kv_leaf(spec, "bitmap", i32, (*lead, 1, d // 32)),
+            _kv_leaf(spec, "signmant", i32, words(8 - trunc)),
+            _kv_leaf(spec, "exp_words", i32, words(exp_bits)),
+            _kv_leaf(spec, "exp_mode", u8, (*lead, 1)),
+            _kv_leaf(spec, "exp_emax", u8, (*lead, 1)),
+            _book({"exp_of_rank": exp_of_rank}, "exp_of_rank"),
+            None, None, None]
+    if verif is not None:
+        if trunc:
+            ptrs[6] = _kv_leaf(verif, "mant_lo", i32, words(trunc))
+        if "exp_corr" in verif:
+            ptrs[7] = _kv_leaf(verif, "exp_corr", u8, (*lead, 1, keep))
+        if keep < d:
+            ptrs[8] = _kv_leaf(verif, "pruned_raw", torch.int16,
+                               (*lead, 1, d - keep))
+    out = torch.empty((*lead, d), dtype=torch.bfloat16, device=bm.device)
+    rows = bm.numel() // (d // 32)
+    if rows == 0:
+        return out
+    if rows >= 2 ** 31:
+        raise ValueError(f"kv_view: {rows} vectors in one launch")
+    chunk, ctas = kv_view_plan(rows, d)
+    fn = build.entry("unary_decode", "kv_view_launch", 10, 8)
+    err = fn(*[0 if t is None else t.data_ptr() for t in ptrs],
+             out.data_ptr(), rows, d, keep, trunc, exp_bits,
+             int(verif is not None), chunk, ctas, build.stream(out))
+    build.raise_on(err, "kv_view")
+    kv_view.launches += 1
+    return out
+
+
+kv_view.launches = 0

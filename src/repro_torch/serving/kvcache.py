@@ -4,7 +4,11 @@ layout (port of ``serving/kvcache.py``).
 Each (token, head) vector is packed online with magnitude top-k pruning,
 mantissa truncation and unary/delta exponent coding against a
 cache-global book; the verification side keeps raw pruned values and
-8-bit corrections, so the target view is bit-exact for any vector.
+8-bit corrections, so the target view is bit-exact for any vector. On the
+card a Cassandra-1 store's encode is one ``kv_encode`` launch and each
+view one ``kv_view`` launch (Cassandra-2: ``kv_topk`` in the format's
+chain, one ``mx_view`` per view); on the CPU the format's chains run
+(``encode_store_plain`` / ``read_store_plain``).
 
 Layout (R = repeats of the layer group; every request owns a contiguous
 (S_max,) row)::
@@ -42,7 +46,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_groups
 from repro_torch.core import format as fmt
 from repro_torch.core.format import CassandraConfig
+from repro_torch.kernels import kv_topk as KT
 from repro_torch.kernels import mx_decode as MXD
+from repro_torch.kernels import unary_decode as UD
 from repro_torch.serving.blockpool import TRASH_BLOCK
 
 ONLINE_CORR_BITS = 8
@@ -80,8 +86,26 @@ def is_packed(store) -> bool:
 
 def encode_store(cass: CassandraConfig, x: torch.Tensor, d: int,
                  codebook) -> dict:
-    """Pack (..., d) bf16 vectors into a {"spec", "verif"} store (the
-    magnitude selection runs through ``kernels.kv_topk``)."""
+    """Pack (..., d) bf16 vectors into a {"spec", "verif"} store. A
+    Cassandra-1 store on the card is one ``kv_encode`` launch; every other
+    store runs the format's chain :func:`encode_store_plain`."""
+    if cass.variant == 1 and x.is_cuda:
+        if codebook is None:
+            raise ValueError("encode_store: a Cassandra-1 store on the card "
+                             "packs against the cache-global book")
+        spec, verif = KT.kv_encode(
+            x.to(torch.bfloat16).contiguous(), codebook[1],
+            keep=cass.kv_keep(d), trunc=cass.kv_trunc,
+            exp_bits=cass.exp_bits)
+        return {"spec": spec, "verif": verif}
+    return encode_store_plain(cass, x, d, codebook)
+
+
+def encode_store_plain(cass: CassandraConfig, x: torch.Tensor, d: int,
+                       codebook) -> dict:
+    """The format's chain (``format.format_tensor`` at one block per
+    vector; its magnitude selection through ``kernels.kv_topk``): what
+    ``kv_encode`` is held to, and what CPU tensors and Cassandra-2 run."""
     spec, verif = fmt.format_tensor(
         x, None, cass, d, cass.kv_keep(d), fmt.kv_group(cass, d),
         cass.kv_trunc, codebook=codebook, corr_bits=ONLINE_CORR_BITS,
@@ -92,17 +116,31 @@ def encode_store(cass: CassandraConfig, x: torch.Tensor, d: int,
 def read_store(cass: CassandraConfig, store, d: int, view: str,
                codebook) -> torch.Tensor:
     """Materialise dense (..., d) bf16 from a store per the runtime view.
-    A Cassandra-2 store on the card is one ``mx_view`` launch; every other
-    store runs the format's chain (its exponent decode through
-    ``unary_decode`` for Cassandra-1)."""
+    On the card a Cassandra-1 store is one ``kv_view`` launch and a
+    Cassandra-2 store one ``mx_view`` launch; a store on the CPU runs the
+    format's chain :func:`read_store_plain`."""
     if not is_packed(store):
         return store
+    if not store["spec"]["bitmap"].is_cuda:
+        return read_store_plain(cass, store, d, view, codebook)
+    verif = None if view == "draft" else store["verif"]
+    if cass.variant == 1:
+        book = store["spec"].get("codebook")
+        return UD.kv_view(store["spec"], verif,
+                          codebook[0] if book is None else book, d=d,
+                          keep=cass.kv_keep(d), trunc=cass.kv_trunc,
+                          exp_bits=cass.exp_bits)
+    return MXD.mx_view(store["spec"], verif, block=d, keep=cass.kv_keep(d),
+                       group=fmt.kv_group(cass, d),
+                       draft_bits=cass.mx_draft_bits)
+
+
+def read_store_plain(cass: CassandraConfig, store: dict, d: int, view: str,
+                     codebook) -> torch.Tensor:
+    """The format's chain (``format.draft_tensor`` / ``target_tensor``; a
+    Cassandra-1 exponent decode through ``unary_decode``): what ``kv_view``
+    is held to, and what CPU stores run."""
     keep = cass.kv_keep(d)
-    if cass.variant != 1 and store["spec"]["bitmap"].is_cuda:
-        return MXD.mx_view(store["spec"],
-                           None if view == "draft" else store["verif"],
-                           block=d, keep=keep, group=fmt.kv_group(cass, d),
-                           draft_bits=cass.mx_draft_bits)
     if view == "draft":
         out = fmt.draft_tensor(store["spec"], cass, d, keep,
                                fmt.kv_group(cass, d), cass.kv_trunc, d,

@@ -535,15 +535,16 @@ def _mla_smoke(card):
 def test_mla_engine_on_card_spec_equals_verify_width_ar(card):
     """C-1 speculative tokens equal autoregressive steps run at the verify
     width on every position; every KV commit encodes c and kr through
-    kv_topk."""
+    kv_encode (no standalone kv_topk)."""
     from repro_torch.kernels import kv_topk as KT
     cfg, cass, _, packed, gen = _mla_smoke(card)
     prompt = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
                            device=card).to(torch.int32)
     eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=3))
-    before = KT.kv_topk.launches
+    before = (KT.kv_encode.launches, KT.kv_topk.launches)
     spec, st = eng.generate({"tokens": prompt}, max_new=12)
-    assert KT.kv_topk.launches - before == 2 * (1 + st["cycles"])
+    assert KT.kv_encode.launches - before[0] == 2 * (1 + st["cycles"])
+    assert KT.kv_topk.launches == before[1]
     assert AR.verify_gap(eng, prompt, 3, 4) == 0.0
     toks, _ = AR.ar_steps(eng, prompt, 12, 4)
     assert torch.equal(spec[:, :12].cpu(), toks.cpu())
@@ -741,6 +742,260 @@ def test_c2_engine_and_scheduler_on_card(card):
     with pytest.raises(ValueError, match="exp_words"):
         Scheduler(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3),
                   num_slots=3, s_max=36, paged=True, attn_kernel="on")
+
+
+# ---------------------------------------------------------------------------
+# kv_encode / kv_view: a C-1 KV store's encode and views in one launch each
+# ---------------------------------------------------------------------------
+
+KV_WIDTHS = [32, 64, 128, 256, 512]
+
+
+def _kv_rows(gen, rows, d):
+    """The kv_topk edge rows (all-equal, small integers, +-0, |v| ties,
+    mostly zeros, NaN, inf, -0), then rows at scale 1/4 (unary under the
+    default book), rows spread over 2^+-12 (mode 1), subnormal rows and
+    NaN payloads of every kind."""
+    v = _topk_rows(gen, rows, d)
+    n = rows - 8
+    x = torch.randn((n, d), generator=gen)
+    spread = torch.exp2(torch.randint(-12, 13, (n, d), generator=gen).float())
+    pick = torch.randint(0, 4, (n, 1), generator=gen)
+    x = torch.where(pick == 0, x * spread, x * 0.25)
+    x = torch.where(pick == 1, x * 2.0 ** -128, x)          # subnormals
+    v[8:] = x.to(torch.bfloat16)
+    b = v.view(torch.int16)
+    b[9, ::3] = 0x7FC1                                      # NaN payloads
+    b[10, 1::5] = -0x7F                                     # 0xFF81, signed
+    b[11, :] = 0x7F81                                       # all NaN
+    return v
+
+
+def _kv_cass(d, fmt=(4, 3), prune=0.4):
+    return CassandraConfig(variant=1, kv_trunc=fmt[0], exp_bits=fmt[1],
+                           kv_prune=prune)
+
+
+def _built_book(v, card):
+    from repro_torch.core import coding
+    exps = (v[12:].view(torch.int16).int() >> 7) & 0xFF
+    eor, roe = coding.build_codebook(exps.to(torch.uint8))
+    return eor.to(card), roe.to(card)
+
+
+def _same_tree(a, b):
+    assert a.keys() == b.keys()
+    for z in a:
+        assert a[z].keys() == b[z].keys(), z
+        for k in a[z]:
+            x, y = a[z][k], b[z][k]
+            assert x.shape == y.shape and x.dtype == y.dtype, (z, k)
+            w = torch.int16 if x.dtype == torch.bfloat16 else x.dtype
+            assert torch.equal(x.view(w), y.view(w)), (z, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,prune", [((4, 3), 0.4), ((0, 3), 0.4),
+                                       ((7, 5), 0.6), ((4, 3), 0.0)])
+@pytest.mark.parametrize("d", KV_WIDTHS)
+def test_kv_encode_matches_chain_on_card(card, d, fmt, prune):
+    """Every leaf of the store bit for bit against the chain
+    (``encode_store_plain``), NaN payloads included, under the default
+    book and a book built from data (unseen exponents rank 255); other
+    mantissa and exponent widths, and keep == d (no pruned values)."""
+    from repro_torch.kernels import kv_topk as KT
+    from repro_torch.serving import kvcache as KC
+    cass = _kv_cass(d, fmt, prune)
+    v = _kv_rows(torch.Generator().manual_seed(d + fmt[0]), 3000, d).to(card)
+    x = v.reshape(2, 3, 500, d)
+    for book in (KC.default_kv_codebook(card), _built_book(v, card)):
+        want = KC.encode_store_plain(cass, x, d, book)
+        before = KT.kv_encode.launches
+        spec, verif = KT.kv_encode(x, book[1], keep=cass.kv_keep(d),
+                                   trunc=cass.kv_trunc,
+                                   exp_bits=cass.exp_bits)
+        torch.cuda.synchronize()
+        assert KT.kv_encode.launches == before + 1
+        _same_tree({"spec": spec, "verif": verif}, want)
+        mode = spec["exp_mode"]
+        assert (mode == 0).any() and (mode == 1).any()
+
+
+def _random_store(store, gen):
+    """The store's leaves overwritten with arbitrary bits (any words,
+    bitmaps with any count of set bits, any mode byte and corrections)."""
+    out = {}
+    for z, t in store.items():
+        out[z] = {}
+        for k, leaf in t.items():
+            r = torch.randint(0, 256, (leaf.numel() * leaf.element_size(),),
+                              generator=gen, device=leaf.device,
+                              dtype=torch.uint8)
+            if k == "exp_mode":
+                r = r % 2
+            out[z][k] = r.view(leaf.dtype).reshape(leaf.shape)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arbitrary", [False, True])
+@pytest.mark.parametrize("fmt,prune", [((4, 3), 0.4), ((0, 3), 0.4),
+                                       ((7, 5), 0.6), ((4, 3), 0.0)])
+@pytest.mark.parametrize("d", KV_WIDTHS)
+def test_kv_view_matches_chain_on_card(card, d, fmt, prune, arbitrary):
+    """Draft and target views bit for bit against the chain
+    (``read_store_plain``) on stores of the edge rows (NaN payloads
+    included) and on arbitrary leaves; a store without corrections."""
+    from repro_torch.kernels import unary_decode as UD
+    from repro_torch.serving import kvcache as KC
+    cass = _kv_cass(d, fmt, prune)
+    gen = torch.Generator(device=card).manual_seed(d + fmt[0])
+    v = _kv_rows(torch.Generator().manual_seed(d), 2000, d).to(card)
+    book = _built_book(v, card)
+    store = KC.encode_store_plain(cass, v.reshape(4, 500, d), d, book)
+    if arbitrary:
+        store = _random_store(store, gen)
+    kw = dict(d=d, keep=cass.kv_keep(d), trunc=cass.kv_trunc,
+              exp_bits=cass.exp_bits)
+    nocorr = {"spec": store["spec"], "verif": {
+        k: t for k, t in store["verif"].items() if k != "exp_corr"}}
+    for st, view in ((store, "draft"), (store, "target"), (nocorr, "target")):
+        want = KC.read_store_plain(cass, st, d, view, book)
+        before = UD.kv_view.launches
+        got = UD.kv_view(st["spec"], st["verif"] if view == "target"
+                         else None, book[0], **kw)
+        torch.cuda.synchronize()
+        assert UD.kv_view.launches == before + 1
+        assert got.shape == want.shape == (4, 500, d)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_kv_store_through_encode_and_read_store_on_card(card):
+    """encode_store / read_store on a C-1 store on the card: one kv_encode
+    per encode and one kv_view per view, no kv_topk or unary_decode; equal
+    to the chain; the target view returns the vectors bit for bit where
+    no row holds NaN."""
+    from repro_torch.kernels import kv_topk as KT, unary_decode as UD
+    from repro_torch.serving import kvcache as KC
+    cass = CassandraConfig(variant=1)
+    gen = torch.Generator().manual_seed(3)
+    book = KC.default_kv_codebook(card)
+    for d in KV_WIDTHS:
+        x = (torch.randn((2, 3, 7, 2, d), generator=gen) * 0.3).to(
+            torch.bfloat16).to(card)
+        KT.kv_encode.launches = KT.kv_topk.launches = 0
+        UD.kv_view.launches = UD.unary_decode.launches = 0
+        store = KC.encode_store(cass, x, d, book)
+        views = [KC.read_store(cass, store, d, view, book)
+                 for view in ("draft", "target")]
+        torch.cuda.synchronize()
+        assert (KT.kv_encode.launches, UD.kv_view.launches) == (1, 2)
+        assert KT.kv_topk.launches == UD.unary_decode.launches == 0
+        _same_tree(store, KC.encode_store_plain(cass, x, d, book))
+        for got, view in zip(views, ("draft", "target")):
+            want = KC.read_store_plain(cass, store, d, view, book)
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert torch.equal(views[1].view(torch.int16), x.view(torch.int16))
+
+
+def _offset_copy(t, shift):
+    """``t`` copied into a buffer at ``shift`` bytes past a 16-byte
+    boundary (same dtype, contiguous)."""
+    nb = t.numel() * t.element_size()
+    buf = torch.zeros(nb + 32, dtype=torch.uint8, device=t.device)
+    raw = buf[shift:shift + nb]
+    raw.copy_(t.contiguous().view(torch.uint8).reshape(-1))
+    return raw.view(t.dtype).reshape(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128, 512])
+def test_kv_view_on_misaligned_and_strided_leaves_on_card(card, d):
+    """Leaves at 4-byte and odd offsets (the kernel copies in the pieces
+    each allows, never past a leaf), non-contiguous leaves (copied), and
+    the leaves of one layer of a stacked pool (``_index``) and of
+    ``gather_store``: all equal the chain on the original store."""
+    from repro_torch.serving import kvcache as KC
+    cass = CassandraConfig(variant=1)
+    book = KC.default_kv_codebook(card)
+    v = _kv_rows(torch.Generator().manual_seed(7), 1200, d).to(card)
+    store = KC.encode_store(cass, v.reshape(2, 6, 100, d), d, book)
+    want = {view: KC.read_store_plain(cass, store, d, view, book)
+            for view in ("draft", "target")}
+
+    def moved(shift_of):
+        return {z: {k: _offset_copy(t, shift_of(t)) for k, t in
+                    store[z].items()} for z in store}
+
+    cases = {
+        "4-byte": moved(lambda t: 4 if t.element_size() == 4 else 0),
+        "odd": moved(lambda t: 1 if t.element_size() == 1 else
+                     2 if t.element_size() == 2 else 4),
+        "strided": {z: {k: torch.cat([t, t], -1)[..., :t.shape[-1]] if
+                        t.ndim > 3 else t for k, t in store[z].items()}
+                    for z in store}}
+    assert not cases["strided"]["spec"]["bitmap"].is_contiguous()
+    for name, st in cases.items():
+        for view in ("draft", "target"):
+            got = KC.read_store(cass, st, d, view, book)
+            assert torch.equal(got.view(torch.int16),
+                               want[view].view(torch.int16)), (name, view)
+    # one layer of the stacked store, and a gathered per-request store
+    layer = {z: {k: t[1] for k, t in store[z].items()} for z in store}
+    table = torch.tensor([[3, 0, 5], [1, 1, 2]], dtype=torch.int32,
+                         device=card)
+    gathered = KC.gather_store(layer, table)
+    for view in ("draft", "target"):
+        assert torch.equal(KC.read_store(cass, layer, d, view, book).view(
+            torch.int16), want[view][1].view(torch.int16))
+        g = KC.read_store(cass, gathered, d, view, book)
+        assert torch.equal(g.view(torch.int16), KC.read_store_plain(
+            cass, gathered, d, view, book).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_kv_codec_kernels_reject_what_they_do_not_take(card):
+    from repro_torch.kernels import kv_topk as KT, unary_decode as UD
+    from repro_torch.serving import kvcache as KC
+    book = KC.default_kv_codebook(card)
+    kw = dict(keep=48, trunc=4, exp_bits=3)
+    with pytest.raises(ValueError, match="d=96"):
+        KT.kv_encode(torch.zeros((4, 96), dtype=torch.bfloat16, device=card),
+                     book[1], **kw)
+    x = torch.zeros((4, 128), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        KT.kv_encode(x.cpu(), book[1], **kw)
+    with pytest.raises(ValueError, match="not contiguous"):
+        KT.kv_encode(torch.zeros((4, 256), dtype=torch.bfloat16,
+                                 device=card)[:, ::2], book[1], **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        KT.kv_encode(x.float(), book[1], **kw)
+    with pytest.raises(ValueError, match="rank_of_exp"):
+        KT.kv_encode(x, book[1].cpu(), **kw)
+    with pytest.raises(ValueError, match="keep=200"):
+        KT.kv_encode(x, book[1], keep=200, trunc=4, exp_bits=3)
+    with pytest.raises(ValueError, match="keep=40"):          # not 16k
+        KT.kv_encode(x, book[1], keep=40, trunc=4, exp_bits=3)
+    cass = CassandraConfig(variant=1)
+    store = KC.encode_store(cass, x, 128, book)
+    vkw = dict(d=128, keep=80, trunc=4, exp_bits=3)
+    with pytest.raises(ValueError, match="d=96"):
+        UD.kv_view(store["spec"], None, book[0], **{**vkw, "d": 96})
+    with pytest.raises(ValueError, match="keep=40"):
+        UD.kv_view(store["spec"], None, book[0], **{**vkw, "keep": 40})
+    with pytest.raises(ValueError, match="shape"):
+        UD.kv_view(store["spec"], None, book[0], **{**vkw, "keep": 64})
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        UD.kv_view({k: t.cpu() for k, t in store["spec"].items()}, None,
+                   book[0], **vkw)
+    with pytest.raises(TypeError, match="dtype"):
+        UD.kv_view({**store["spec"], "exp_mode": store["spec"][
+            "exp_mode"].int()}, None, book[0], **vkw)
+    with pytest.raises(ValueError, match="32 entries"):
+        UD.kv_view(store["spec"], None, book[0][:16], **vkw)
+    with pytest.raises(ValueError, match="book"):
+        KC.encode_store(cass, x, 128, None)
 
 
 # ---------------------------------------------------------------------------
