@@ -100,12 +100,30 @@ these phases; any failure exits non-zero:
               bit for bit, kernel on == off under the near-tie rule (share
               printed), and the bf16 autoregressive baseline with the
               kernel on and off;
-14. report  — ``kernels: [...]``, one JSON line per the kernels table,
+14. prefix + swap — the prefix cache and preemption with host swap
+              through the paged ``Scheduler`` (4 slots, block 16, chunk
+              32, fused, overlap), 8 prompts of 128 tokens × 32 new, for
+              DeepSeek-V3's dense layers (C-1, ``paged_mla``), Llama-3-8B
+              at full width (C-1, the attention kernels on) and at 2
+              layers (C-2, the attention kernel off): (b) two waves of 4
+              sharing a 72-token header (4.5 blocks: a copy-on-write per
+              hit), the second submitted once the first is idle, with the
+              cache on and off: tokens bit for bit, hits, matched tokens
+              and copies > 0, fewer encode and target-attention launches
+              with the cache on; (a) on that run's pool, a block copy and
+              a spill / restore round trip through pinned host buffers bit
+              for bit (sources, other blocks and block 0 untouched), µs
+              and GB/s; (c) the prompts without the header arriving a
+              quarter cycle apart at priorities 0 and 1, on a 24-block
+              pool (preemptions, blocks spilled and restored) and on an
+              ample one: tokens bit for bit, every request its tokens;
+15. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 4c, 7-14 (4b and 4c read phase 6's
-prompts). Phases 6, 7, 9, 10, 12 and 13 set every kernel's launch count
-to 0 before their run and check it after against what the passes imply
+Phases run in the order 1-6, 4b, 4c, 7-15 (4b and 4c read phase 6's
+prompts). Phases 6, 7, 9, 10, 12, 13 and each run of 14 set every
+kernel's launch count to 0 before their run and check it after against
+what the passes imply
 (the C-1 runs also count ``kv_encode``, one per KV store per commit,
 ``kv_view``, one per KV store view, and ``unary_decode``, MLA's kv_b
 draft view; the C-2 runs ``kv_topk``, the KV encode's selection, and
@@ -2399,6 +2417,422 @@ def mla_sched_phase(m, args, eng: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the prefix cache (copy-on-write) and preemption with host swap
+# ---------------------------------------------------------------------------
+
+PS_REQUESTS = 8                    # two waves of 4 through 4 slots
+PS_HEADER = 72                     # the shared header: 4.5 blocks of 16
+PS_TIGHT_BLOCKS = 24               # the oversubscribed pool, trash included
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.kernels import paged_attention as PA
+    return {"draft_matmul": DM.draft_matmul.launches,
+            "paged_gqa": PA.paged_gqa.launches,
+            "paged_gqa_packed": PA.paged_gqa_packed.launches,
+            "paged_mla": PA.paged_mla.launches, **codec_launches()}
+
+
+def pass_launches(kind: str, st: dict, cfg, cass, packed) -> dict:
+    """Every kernel's launches a scheduler run's passes imply (the rules
+    of phases 7, 10 and 13): ``kind`` "c1" (GQA, attention kernels on),
+    "c2" (attention kernel off) or "mla" (``paged_mla``). Block copies,
+    spills and restores are plain indexing: no launch."""
+    layers, gamma = cfg.n_layers, cass.gamma
+    unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
+    drafts, targets = gamma * unified, st["cycles"]
+    mats = packed_matrices(packed)
+    out = dict.fromkeys(all_launches(), 0)
+    if kind == "c1":
+        out.update(draft_matmul=drafts * (7 * layers + 1),
+                   paged_gqa=targets * layers,
+                   paged_gqa_packed=drafts * layers, kv_encode=2 * targets,
+                   kv_view=targets * 2 * layers,
+                   target_decode=targets * mats)
+    elif kind == "c2":
+        out.update(mx_view=targets * (mats + 2 * layers)
+                   + gamma * unified * mats + 2 * unified,
+                   kv_topk=2 * targets)
+    else:
+        out.update(draft_matmul=drafts * (7 * layers + 1),
+                   paged_mla=(targets + drafts) * layers,
+                   kv_encode=2 * targets,
+                   kv_view=(targets + drafts) * 2 * layers,
+                   unary_decode=drafts * layers * _kv_b_pieces(packed),
+                   target_decode=targets * mats)
+    return out
+
+
+def serve_trace(tag: str, kind: str, cfg, params, cass, prompts, n: int, *,
+                waves: bool, **kw):
+    """One phase-14 trace through a paged ``Scheduler`` (4 slots, block 16,
+    chunk 32, fused, overlap). ``waves``: the first half of the prompts
+    run to idle, then the second half arrives and finds the first half's
+    blocks indexed; otherwise arrivals come a quarter cycle apart with
+    priorities 0 and 1 alternating. Launch counts are set to 0 before the
+    run and held to the passes after it. Returns (scheduler, summary,
+    tokens (R, n), wall s, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.scheduler import Scheduler
+    sched = Scheduler(cfg, params, cass=cass,
+                      ecfg=EngineConfig(gamma=cass.gamma), num_slots=4,
+                      s_max=prompts.shape[1] + n + cass.gamma + 1,
+                      paged=True, block_size=BLOCK, chunk_size=CHUNK,
+                      device="cuda", **kw)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if waves:
+        half = len(prompts) // 2
+        reqs = [sched.submit(p, max_new=n) for p in prompts[:half]]
+        sched.run()
+        reqs += [sched.submit(p, max_new=n, arrival=sched.clock)
+                 for p in prompts[half:]]
+    else:
+        reqs = [sched.submit(p, max_new=n, arrival=i / 4.0, priority=i % 2)
+                for i, p in enumerate(prompts)]
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sched.summary()
+    got, want = all_launches(), pass_launches(kind, st, cfg, cass, params)
+    if got != want:
+        fail(f"{tag}: launches {got} != expected {want}")
+    sched.check_invariants()
+    for r in reqs:
+        if len(r.output) != n:
+            fail(f"{tag}: request {r.rid} delivered {len(r.output)} tokens, "
+                 f"expected {n}")
+    tokens = np.array([r.output for r in reqs], dtype=np.int64)
+    if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        fail(f"{tag}: tokens out of range")
+    return sched, st, tokens, wall, got
+
+
+def _event_ms(fn) -> float:
+    """CUDA-event ms from before ``fn``'s work is enqueued to its end
+    (host gaps between its launches included)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def block_moves(tag: str, sched, reps: int = 5) -> dict:
+    """(a) ``copy_pool_blocks`` and a spill / restore round trip through
+    pinned host buffers on a scheduler's pool after its run (its indexed
+    blocks hold prompt KV from the prefills): destinations bit for bit,
+    sources and every other block untouched, block 0 unchanged,
+    ``put_async`` + ``finalize`` giving the bytes ``put`` gives. Times by
+    CUDA events; bytes as moved (the padded entries included)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.swapstore import SpillStore, tree_leaves
+    cache, nb, mb = sched.cache, sched.num_blocks, sched.max_blocks
+    indexed = sorted(sched.prefix.by_block)
+    spill_src = indexed[:min(8, mb)]
+    free = [j for j in range(1, nb) if j not in indexed]
+    n = len(spill_src)
+    if len(indexed) < 3 or len(free) < 3 + n:
+        fail(f"{tag}: too few blocks for the block checks ({indexed})")
+    leaves = tree_leaves(cache["dec"])
+    bb = sum(t[:, 0].numel() * t.element_size() for t in leaves)
+
+    def untouched(now, was, changed) -> bool:
+        rest = [j for j in range(nb) if j not in changed]
+        return all(_same_bits(t[:, rest], w[:, rest])
+                   for t, w in zip(now, was))
+    # copy-on-write: 3 pairs and one trash -> trash pad, as the scheduler
+    k = sched.num_slots
+    src, dst = np.zeros(k, np.int32), np.zeros(k, np.int32)
+    src[:3], dst[:3] = indexed[:3], free[:3]
+    src_d, dst_d = torch.from_numpy(src).cuda(), torch.from_numpy(dst).cuda()
+    before = [t.clone() for t in leaves]
+    KC.copy_pool_blocks(cache, src_d, dst_d)
+    torch.cuda.synchronize()
+    cow_ok = (all(_same_bits(t[:, free[:3]], w[:, indexed[:3]])
+                  for t, w in zip(leaves, before))
+              and untouched(leaves, before, free[:3]))
+    cow_ms = cuda_ms(lambda: KC.copy_pool_blocks(cache, src_d, dst_d), 20)
+    cow_bytes = 2 * k * bb
+    # spill n blocks, padded to the row's table width, both ways
+    vec = np.zeros(mb, np.int32)
+    vec[:n] = spill_src
+    vec_d = torch.from_numpy(vec).cuda()
+    want = [t[:, spill_src].clone() for t in leaves]
+    sync, staged = SpillStore(), SpillStore()
+    chain = sync.put(0, KC.spill_pool_blocks(cache, vec_d), n, length=0,
+                     pos=0, cur=0)
+    spill_ms = []
+    for i in range(reps):
+        spill_ms.append(_event_ms(lambda: staged.put_async(
+            i, KC.spill_pool_blocks(cache, vec_d), n, length=0, pos=0,
+            cur=0)))
+    staged.finalize()
+    spill_ok = all(
+        h.is_pinned() and _same_bits(h, w.cpu())
+        for c in [chain] + [staged.get(i) for i in range(reps)]
+        for h, w in zip(tree_leaves(c.data), want))
+    # restore the chain into other blocks
+    back = free[3:3 + n]
+    vec2 = np.zeros(mb, np.int32)
+    vec2[:n] = back
+    vec2_d = torch.from_numpy(vec2).cuda()
+    host = chain.slice_blocks(0, n, mb)
+    before = [t.clone() for t in leaves]
+    KC.restore_pool_blocks(cache, vec2_d, host)
+    torch.cuda.synchronize()
+    restore_ok = (all(_same_bits(t[:, back], w)
+                      for t, w in zip(leaves, want))
+                  and untouched(leaves, before, back)
+                  and all(h.is_pinned() for h in tree_leaves(host)))
+    restore_ms = [_event_ms(lambda: KC.restore_pool_blocks(
+        cache, vec2_d, host)) for _ in range(reps)]
+    trash_ok = all(_same_bits(t[:, 0], w[:, 0])
+                   for t, w in zip(leaves, before))
+    sp, rs = float(np.median(spill_ms)), float(np.median(restore_ms))
+    say(f"[{tag}] block moves on the pool after the run ({len(leaves)} "
+        f"leaves, {bb} B a block): copy-on-write of 3 blocks + 1 trash "
+        f"pair bit for bit, sources and other blocks untouched: {cow_ok}; "
+        f"{cow_ms * 1e3:.1f} us, {cow_bytes} B of HBM traffic, "
+        f"{cow_bytes / cow_ms / 1e6:.2f} GB/s")
+    say(f"[{tag}] spill of {n} blocks ({n * bb} B; the gather covers the "
+        f"{mb}-block operand) into pinned host buffers, put and put_async + "
+        f"finalize bit for bit: {spill_ok}; median {sp * 1e3:.1f} us of "
+        f"{reps} (CUDA events, gather + device-to-host), "
+        f"{n * bb / sp / 1e6:.2f} GB/s of the chain; HBM traffic "
+        f"{(2 * mb + n) * bb} B")
+    say(f"[{tag}] restore of the chain into {n} other blocks ({mb}-block "
+        f"padded operand, {mb * bb} B host-to-device) bit for bit, other "
+        f"blocks untouched: {restore_ok}; median {rs * 1e3:.1f} us of "
+        f"{reps}, {n * bb / rs / 1e6:.2f} GB/s of the chain; block 0 "
+        f"unchanged through all: {trash_ok}")
+    if not (cow_ok and spill_ok and restore_ok and trash_ok):
+        fail(f"{tag}: block moves not bit for bit (cow {cow_ok}, spill "
+             f"{spill_ok}, restore {restore_ok}, trash {trash_ok})")
+    return {"block_bytes": bb, "cow_us": cow_ms * 1e3,
+            "cow_gbs": cow_bytes / cow_ms / 1e6, "spill_us": sp * 1e3,
+            "restore_us": rs * 1e3}
+
+
+def _wall(st: dict, name: str) -> str:
+    w = st["bucket_wall_ms"].get(name, {"calls": 0, "mean_ms": 0.0})
+    return f"{name} {w['mean_ms']:.3f} ms x{w['calls']}"
+
+
+def prefix_swap_runs(tag: str, kind: str, cfg, params, cass, gen,
+                     args) -> dict:
+    """(b) the prefix cache on and off, (a) the block checks on the
+    cache-on run's pool, and (c) swap on a tight pool and on an ample one,
+    for one model. The gates are bitwise: the tokens with the cache on
+    equal those with it off, and the tokens with swap equal those of the
+    pool that never preempts."""
+    import numpy as np
+    import torch
+    n = args.max_new
+    prompts = torch.randint(0, cfg.vocab_size, (PS_REQUESTS,
+                                                args.prompt_len),
+                            generator=gen, device="cuda").cpu().numpy()
+    shared = prompts.copy()
+    shared[:, :PS_HEADER] = prompts[0, :PS_HEADER]
+    attn = {"attn_kernel": "off" if kind == "c2" else "on"}
+    encode = "kv_topk" if kind == "c2" else "kv_encode"
+    attend = {"c1": "paged_gqa", "mla": "paged_mla"}.get(kind)
+    on_s, on, on_tok, on_wall, on_l = serve_trace(
+        f"{tag} prefix on", kind, cfg, params, cass, shared, n, waves=True,
+        prefix_cache=True, **attn)
+    _, off, off_tok, off_wall, off_l = serve_trace(
+        f"{tag} prefix off", kind, cfg, params, cass, shared, n, waves=True,
+        **attn)
+    same = np.array_equal(on_tok, off_tok)
+    say(f"[{tag}] prefix cache on == off, bit for bit: {same}")
+    if not same:
+        fail(f"{tag}: tokens with the prefix cache on differ from off: "
+             f"equal at {int((on_tok == off_tok).sum())} of {on_tok.size}")
+    fewer = on_l[encode] < off_l[encode] and (
+        attend is None or on_l[attend] < off_l[attend])
+    say(f"[{tag}] prefix: hit rate {on['prefix_hit_rate']:.3f} "
+        f"({on['prefix_hits']} of {on['prefix_queries']} admissions), "
+        f"matched {on['prefix_matched_tokens']} tokens, aliased "
+        f"{on['prefix_blocks_aliased']} blocks, copy-on-write "
+        f"{on['cow_copies']}; prefill tokens {on['prefill_tokens']} / "
+        f"{off['prefill_tokens']} (saved "
+        f"{off['prefill_tokens'] - on['prefill_tokens']}), prefill cycles "
+        f"{on['prefill_cycles']} / {off['prefill_cycles']} (chunks saved "
+        f"{off['prefill_cycles'] - on['prefill_cycles']}); cycles "
+        f"{on['cycles']} / {off['cycles']}; wall {on_wall:.2f} / "
+        f"{off_wall:.2f} s (on / off); {_wall(on, 'cow')}; step shapes "
+        f"{on['trace_counts']}")
+    say(f"[{tag}] launches, cache on: {on_l}; off: {off_l}; each as its "
+        f"passes imply: True; {encode}"
+        f"{'' if attend is None else ' and ' + attend} fewer with the "
+        f"cache on: {fewer}")
+    if not (on["prefix_hits"] > 0 and on["prefix_matched_tokens"] > 0
+            and on["cow_copies"] >= 1 and fewer):
+        fail(f"{tag}: the prefix cache was not exercised: {on}")
+    moves = block_moves(tag, on_s)
+    del on_s
+    tight_s, tight, tight_tok, tight_wall, tight_l = serve_trace(
+        f"{tag} swap", kind, cfg, params, cass, prompts, n, waves=False,
+        swap=True, num_blocks=PS_TIGHT_BLOCKS, **attn)
+    bb = moves["block_bytes"]
+    del tight_s
+    _, ample, ample_tok, ample_wall, _ = serve_trace(
+        f"{tag} ample", kind, cfg, params, cass, prompts, n, waves=False,
+        **attn)
+    same = np.array_equal(tight_tok, ample_tok)
+    say(f"[{tag}] swap on a {PS_TIGHT_BLOCKS}-block pool == a "
+        f"{ample['pool_blocks'] + 1}-block pool that never preempts, bit for "
+        f"bit: {same}")
+    if not same:
+        fail(f"{tag}: tokens with swap differ from the ample pool's: equal "
+             f"at {int((tight_tok == ample_tok).sum())} of {tight_tok.size}")
+    say(f"[{tag}] swap: preemptions {tight['preemptions']}, resumes "
+        f"{tight['swap_resumes']}, blocks spilled {tight['swap_out_blocks']} "
+        f"({tight['swap_out_blocks'] * bb} B) / restored "
+        f"{tight['swap_in_blocks']} ({tight['swap_in_blocks'] * bb} B) / "
+        f"re-aliased {tight['swap_matched_blocks']}, host peak "
+        f"{tight['spill_peak_bytes']} B; walls {_wall(tight, 'spill')}, "
+        f"{_wall(tight, 'spill.dispatch')}, {_wall(tight, 'restore')}, "
+        f"{_wall(tight, 'restore.dispatch')}; cycles {tight['cycles']} / "
+        f"{ample['cycles']}, wall {tight_wall:.2f} / {ample_wall:.2f} s "
+        f"(swap / ample); ample preemptions {ample['preemptions']}; "
+        f"launches {tight_l}; step shapes {tight['trace_counts']}")
+    if not (tight["preemptions"] >= 1 and tight["swap_out_blocks"] >= 1
+            and tight["swap_in_blocks"] >= 1
+            and ample["preemptions"] == 0):
+        fail(f"{tag}: swap was not exercised: {tight}")
+    return {"on": on, "off": off, "tight": tight, "ample": ample,
+            "launches": {"on": on_l, "off": off_l, "swap": tight_l},
+            "moves": moves, "walls": (on_wall, off_wall, tight_wall,
+                                      ample_wall)}
+
+
+def chunk_start_outputs(cfg, windowed: bool):
+    """One paged attention layer of ``cfg`` at full width (random weights,
+    random bf16 pools) on the same prompt tokens under two chunk
+    partitions: positions 32..47 in one 16-wide chunk from a pool holding
+    0..31, and 40..47 from the pool holding 0..39 (its 32..39 the K/V or
+    latents the first pass computed), as after a prefix hit or a resume.
+    Returns the two passes' outputs at 40..47; ``windowed`` passes the
+    serving steps' window start (``engine.window_start``)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import _index, init_params
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import window_start
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = _index(init_params(cfg, gen, device="cuda")["dec"][0]["e0"]["attn"],
+               0)
+    rt = Runtime(cfg=cfg, cass=None, view="plain", attn_kernel="on")
+    b, t, mb = 2, 16, 4
+    table = (1 + torch.arange(b * mb, device="cuda")).reshape(b, mb).to(
+        torch.int32)
+    x = torch.randn((b, 48, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    pools = {nm: (torch.randn((b * mb + 1, BLOCK, *KC.store_heads(cfg), d),
+                              generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16) for nm, d in KC.store_dims(cfg).items()}
+
+    def layer(lo: int, valid: int):
+        length = torch.full((b,), lo, dtype=torch.int32, device="cuda")
+        xs = torch.zeros((b, t, cfg.d_model), dtype=torch.bfloat16,
+                         device="cuda")
+        xs[:, :valid] = x[:, lo:lo + valid]
+        pos = length[:, None] + torch.arange(t, device="cuda")
+        kw = dict(table=table, length=length, scratch=None, scratch_len=0,
+                  suffix_from=window_start(
+                      length, torch.full_like(length, valid), t)
+                  if windowed else None)
+        if cfg.mla:
+            return A.mla_attention_paged(rt, p, xs, pos, c_pool=pools["c"],
+                                         kr_pool=pools["kr"], **kw)
+        return A.gqa_attention_paged(
+            rt, p, xs, pos, kv_pools=("plain", pools["k"], pools["v"]), **kw)
+
+    with torch.inference_mode():
+        out_a, new_a = layer(32, 16)
+        for pool, new in zip(pools.values(), new_a):
+            pool[table[:, 2].to(torch.int64), :8] = new[:, :8]
+        out_b, _ = layer(40, 8)
+    torch.cuda.synchronize()
+    return out_a[:, 8:16], out_b[:, :8]
+
+
+def chunk_start_check() -> None:
+    """A prompt token's attention output must not depend on where its
+    chunk started (the prefix cache and resumes start chunks mid-grid):
+    one layer of Llama-3-8B and of DeepSeek-V3 at full width, with the
+    serving steps' window start (gate: bit for bit) and without it (the
+    pool walk / suffix split moves with the chunk start; reported)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    for arch in ("llama3-8b", "deepseek-v3-671b"):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=1, first_dense_layers=min(
+            full.first_dense_layers, 1))
+        got = {}
+        for windowed in (False, True):
+            a, b = chunk_start_outputs(cfg, windowed)
+            got[windowed] = (_same_bits(a, b),
+                             float((a.float() - b.float()).abs().max()))
+        say(f"[prefix-swap] {arch}, one layer at full width, a prompt "
+            f"token's attention output with its chunk started on the grid "
+            f"and mid-grid: without the window start bit for bit "
+            f"{got[False][0]} (max abs diff {got[False][1]:.3g}); with it "
+            f"{got[True][0]} (max abs diff {got[True][1]:.3g})")
+        if not got[True][0]:
+            fail(f"prefix-swap: {arch}'s attention depends on the chunk start")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def prefix_swap_phase(args) -> dict:
+    """Phase 14 on Llama-3-8B: the chunk-start check of one layer, then
+    full width under Cassandra-1 with the attention kernels on, then 2
+    layers under Cassandra-2 with the attention kernel off. Each model is
+    new, from a generator of its own."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params
+    from repro_torch.models.model import init_params
+    chunk_start_check()
+    out = {}
+    for tag, kind, layers, variant, seed in (
+            ("prefix-swap", "c1", args.layers, 1, args.seed + 6),
+            ("c2-prefix-swap", "c2", 2, 2, args.seed + 7)):
+        cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=layers)
+        cass = CassandraConfig(variant=variant, gamma=3)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        packed = format_params(init_params(cfg, gen, device="cuda"), cass)
+        torch.cuda.synchronize()
+        say(f"[{tag}] {cfg.name} {layers} layers, Cassandra-{variant}, "
+            f"set up in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out[kind] = prefix_swap_runs(tag, kind, cfg, packed, cass, gen, args)
+        say(f"[{tag}] done in {time.perf_counter() - t0:.1f} s")
+        del packed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def run(args) -> None:
     import torch
@@ -2516,11 +2950,20 @@ def run(args) -> None:
     codec += mla_k["codec"]
     mla_e = mla_engine_phase(mla, args)
     mla_s = mla_sched_phase(mla, args, mla_e)
+    # 14. the prefix cache and swap: DeepSeek-V3's dense layers (phase 11's
+    # model, a generator of its own), then Llama-3-8B at full width under
+    # C-1 and at 2 layers under C-2
+    t0 = time.perf_counter()
+    ps = {"mla": prefix_swap_runs(
+        "mla-prefix-swap", "mla", mla["cfg"], mla["packed"], mla["cass"],
+        torch.Generator(device="cuda").manual_seed(args.seed + 8), args)}
     del mla
     gc.collect()
     torch.cuda.empty_cache()
+    ps.update(prefix_swap_phase(args))
+    say(f"[prefix-swap] phase 14 in {time.perf_counter() - t0:.1f} s")
 
-    # 14. report
+    # 15. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
         '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
         '"target_decode", "mx_view", "kv_encode", "kv_view"]')

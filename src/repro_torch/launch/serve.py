@@ -14,8 +14,18 @@ Weights are random, drawn from ``--seed``. ``--arch deepseek-v3-671b``
 is known, but its routed-expert layers (every layer past the first 3; 2
 of SMOKE's 3) raise ``NotImplementedError`` until MoE is ported: its
 dense layers run through the Python API (``chip_smoke.py`` serves them).
-The prefix cache (``--prefix-cache``, ``--shared-header``) and preemption
-(``--swap``) come with ROADMAP Queue 1.
+
+With ``--scheduler --paged``, ``--prefix-cache`` shares cached prompt-prefix
+blocks across requests (``--shared-header`` gives every request the first
+request's first half, so the cache has something to hit, and the same
+trace runs with the cache off too: the tokens must agree) and ``--swap``
+lets the queue head preempt a resident row to host memory; the ``[prefix]``
+and ``[swap]`` lines report them:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --smoke --device cpu --scheduler --paged --prefix-cache \
+      --shared-header --slots 2 --requests 5 --prompt-len 12 --max-new 8 \
+      --block-size 4 --chunk-size 8
 """
 from __future__ import annotations
 
@@ -77,6 +87,28 @@ def run(argv=None):
     ap.add_argument("--chunk-size", type=int, default=32,
                     help="wide prefill chunk (one step bucket for every "
                     "admission)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share cached prompt-prefix blocks across "
+                    "requests (radix index + copy-on-write; requires "
+                    "--paged)")
+    ap.add_argument("--shared-header", action="store_true",
+                    help="give all requests a common prompt header (half "
+                    "the prompt) so the prefix cache has something to "
+                    "hit; the same trace with the cache off prints the "
+                    "same tokens")
+    ap.add_argument("--prefix-cache-blocks", type=int, default=None,
+                    help="max evictable blocks the prefix cache may keep "
+                    "parked after their requests retire (default: bounded "
+                    "only by the pool)")
+    ap.add_argument("--swap", action="store_true",
+                    help="preemption + host swap: when the queue head "
+                    "cannot reserve, swap a resident victim's KV blocks "
+                    "to a host spill store and admit at once (requires "
+                    "--paged)")
+    ap.add_argument("--swap-store-blocks", type=int, default=None,
+                    help="max pool blocks the host spill store may hold "
+                    "(default: unbounded); a full store stops preemption, "
+                    "never drops a chain")
     ap.add_argument("--alternating", action="store_true",
                     help="the prefill/decode-alternating scheduler instead "
                     "of the fused mixed-role step")
@@ -90,7 +122,8 @@ def run(argv=None):
                     "numbered requests (repeatable)")
     ap.add_argument("--priority", type=int, action="append", default=None,
                     help="per-request priority (repeatable, cycled over "
-                    "requests): higher admitted first")
+                    "requests): higher admitted first, lower preempted "
+                    "first")
     ap.add_argument("--ttft-deadline-ms", type=float, default=None,
                     help="per-request TTFT SLO (every request)")
     ap.add_argument("--itl-target-ms", type=float, default=None,
@@ -115,6 +148,12 @@ def run(argv=None):
     if args.paged and not args.scheduler:
         ap.error("--paged requires --scheduler (the fixed-batch engine "
                  "has no block pool)")
+    if args.prefix_cache and not args.paged:
+        ap.error("--prefix-cache requires --paged (sharing aliases "
+                 "physical pool blocks through block tables)")
+    if args.swap and not args.paged:
+        ap.error("--swap requires --paged (preemption spills and "
+                 "restores pool blocks through block tables)")
     if args.attn_kernel != "off" and not args.paged:
         ap.error("--attn-kernel requires --paged (the kernel walks the "
                  "block table in-kernel)")
@@ -133,6 +172,11 @@ def run(argv=None):
     prompt = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.requests, args.prompt_len), generator=gen,
         device=args.device, dtype=torch.int64).to(torch.int32)}
+    if args.shared_header:
+        # a shared system-prompt header (half the prompt) so the prefix
+        # cache has something to hit on this synthetic trace
+        half = args.prompt_len // 2
+        prompt["tokens"][:, :half] = prompt["tokens"][0, :half]
 
     cass = None
     if args.variant:
@@ -177,6 +221,10 @@ def run_scheduler(args, cfg, params, cass, tokens: torch.Tensor) -> None:
                       fused=not args.alternating,
                       max_prefill_tokens_per_step=(
                           args.max_prefill_tokens_per_step),
+                      prefix_cache=args.prefix_cache,
+                      prefix_cache_blocks=args.prefix_cache_blocks,
+                      swap=args.swap,
+                      swap_store_blocks=args.swap_store_blocks,
                       slo_aware=not args.fifo, attn_kernel=args.attn_kernel,
                       overlap=not args.no_overlap, telemetry=telem,
                       device=args.device)

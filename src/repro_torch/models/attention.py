@@ -377,17 +377,59 @@ def _suffix(scratch: dict | None, new: dict) -> tuple:
         for nm, n in new.items())
 
 
+def _window(pools: tuple, table: torch.Tensor, length: torch.Tensor,
+            suffix_from: torch.Tensor, new: tuple) -> tuple:
+    """A target pass's suffix from its window start: the keys (MLA:
+    latents) at positions ``suffix_from .. suffix_from + T - 1`` of each
+    row, the committed ones read from the dense pool views (NB, BS, …)
+    through the table and the new tokens' after them. Returns (the
+    suffix per store (B, T, …), its validity (B, T, T): query t, at
+    position ``length + t``, sees window entry i iff ``suffix_from + i <=
+    length + t``).
+
+    The paged kernels walk a row's pool up to ``suffix_from`` and the
+    suffix is merged after, so where that boundary falls decides the sum
+    order of every query's attention. Callers put it on a grid of the
+    pass width (``engine.window_start``): a prompt token then gets the
+    same walk and the same suffix whichever chunk boundaries its row was
+    prefilled with (a prefix hit or a resume starts mid-grid). With
+    ``suffix_from == length`` the suffix is the new tokens and the
+    validity the causal triangle, as without a window."""
+    b, t = new[0].shape[:2]
+    dev = new[0].device
+    off = (length.to(torch.int64) - suffix_from.to(torch.int64))[:, None]
+    i = torch.arange(t, device=dev)
+    wpos = suffix_from.to(torch.int64)[:, None] + i           # (B, T)
+    committed = i[None, :] < off
+    bs, mb = pools[0].shape[1], table.shape[1]
+    blk = torch.gather(table.to(torch.int64), 1,
+                       (wpos // bs).clamp(max=mb - 1))
+    blk = torch.where(committed & (blk >= 0) & (blk < pools[0].shape[0]),
+                      blk, 0)
+    j = (i[None, :] - off).clamp(min=0)
+    out = []
+    for pool, nw in zip(pools, new):
+        lead = (b, t) + (1,) * (nw.ndim - 2)
+        from_pool = pool[blk, wpos % bs].to(nw.dtype)
+        from_new = torch.gather(nw, 1, j.reshape(lead).expand(nw.shape))
+        out.append(torch.where(committed.reshape(lead), from_pool, from_new))
+    valid = i[None, None, :] <= off[:, :, None] + i[None, :, None]
+    return tuple(out), valid
+
+
 def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
                         kv_pools: tuple, table: torch.Tensor,
                         length: torch.Tensor, scratch: dict | None,
-                        scratch_len):
+                        scratch_len, suffix_from=None):
     """GQA cached decode through the paged-attention kernels.
 
     ``kv_pools`` is ``("plain", k_pool, v_pool)`` (bf16 (NB,BS,Hkv,hd)
     pools) or ``("packed", k_spec, v_spec, book, keep)`` (the speculation
     leaf dicts; the decode runs inside the kernel). The pool holds each
     row's committed prefix (``length`` tokens); the draft scratch and the
-    new tokens form the suffix. Returns (out, (new_k, new_v)).
+    new tokens form the suffix. A target pass over plain pools may pass
+    ``suffix_from`` (B,): the kernel then walks only up to it and the
+    suffix starts there (:func:`_window`). Returns (out, (new_k, new_v)).
     """
     cfg = rt.cfg
     b, sq, _ = x.shape
@@ -398,6 +440,9 @@ def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
     new_k, new_v = gqa_project_kv(rt, p, x, positions)
     qg = q.reshape(b, sq, hkv, g, cfg.hd)
     length = length.to(torch.int32).reshape(-1).expand(b).contiguous()
+    windowed = suffix_from is not None and kv_pools[0] == "plain"
+    walk = (suffix_from.to(torch.int32).reshape(-1).expand(b).contiguous()
+            if windowed else length)
     if kv_pools[0] == "packed":
         _, k_spec, v_spec, book, keep = kv_pools
         acc, m, l = PA.paged_gqa_packed(
@@ -405,10 +450,14 @@ def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
             trunc=rt.cass.kv_trunc, exp_bits=rt.cass.exp_bits, scale=scale)
     else:
         _, k_pool, v_pool = kv_pools
-        acc, m, l = PA.paged_gqa(qg, k_pool, v_pool, table, length,
+        acc, m, l = PA.paged_gqa(qg, k_pool, v_pool, table, walk,
                                  scale=scale)
-    g_s, (suf_k, suf_v) = _suffix(scratch, {"k": new_k, "v": new_v})
-    suf_valid = _suffix_valid(b, sq, g_s, scratch_len, x.device)
+    if windowed:
+        (suf_k, suf_v), suf_valid = _window(kv_pools[1:], table, length,
+                                            walk, (new_k, new_v))
+    else:
+        g_s, (suf_k, suf_v) = _suffix(scratch, {"k": new_k, "v": new_v})
+        suf_valid = _suffix_valid(b, sq, g_s, scratch_len, x.device)
     out = PA.merge_gqa_suffix(acc, m, l, qg, suf_k, suf_v, suf_valid,
                               scale=scale)                 # (B,Sq,hkv,g,hd)
     out = out.reshape(b, sq, cfg.n_heads * cfg.hd).to(x.dtype)
@@ -418,7 +467,7 @@ def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
 def mla_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
                         c_pool: torch.Tensor, kr_pool: torch.Tensor,
                         table: torch.Tensor, length: torch.Tensor,
-                        scratch: dict | None, scratch_len):
+                        scratch: dict | None, scratch_len, suffix_from=None):
     """MLA cached decode through the paged latent-flash kernel.
 
     ``c_pool`` (NB,BS,L) and ``kr_pool`` (NB,BS,R) are bf16 pools: a
@@ -428,7 +477,8 @@ def mla_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
     as in its SMOKE config; at DeepSeek-V3's widths, 512 and 64, both
     stores pack under Cassandra-1.) The pool holds each row's committed
     prefix; the draft scratch and the new tokens form the suffix, folded
-    in by ``merge_mla_suffix``. Returns (out, (new_c, new_kr)).
+    in by ``merge_mla_suffix``; a target pass may pass ``suffix_from``, as
+    ``gqa_attention_paged``. Returns (out, (new_c, new_kr)).
     """
     cfg = rt.cfg
     b, sq, _ = x.shape
@@ -439,10 +489,17 @@ def mla_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
     q_eff = _absorb_q(q_nope, w_uk).contiguous()
     q_rope = q_rope.to(torch.float32).contiguous()
     length = length.to(torch.int32).reshape(-1).expand(b).contiguous()
-    acc, m, l = PA.paged_mla(q_eff, q_rope, c_pool, kr_pool, table, length,
+    windowed = suffix_from is not None and scratch is None
+    walk = (suffix_from.to(torch.int32).reshape(-1).expand(b).contiguous()
+            if windowed else length)
+    acc, m, l = PA.paged_mla(q_eff, q_rope, c_pool, kr_pool, table, walk,
                              scale=scale)
-    g_s, (suf_c, suf_kr) = _suffix(scratch, {"c": new_c, "kr": new_kr})
-    suf_valid = _suffix_valid(b, sq, g_s, scratch_len, x.device)
+    if windowed:
+        (suf_c, suf_kr), suf_valid = _window((c_pool, kr_pool), table,
+                                             length, walk, (new_c, new_kr))
+    else:
+        g_s, (suf_c, suf_kr) = _suffix(scratch, {"c": new_c, "kr": new_kr})
+        suf_valid = _suffix_valid(b, sq, g_s, scratch_len, x.device)
     ctx = PA.merge_mla_suffix(acc, m, l, q_eff, q_rope, suf_c, suf_kr,
                               suf_valid, scale=scale)      # (B,Sq,H,L)
     return _mla_out(rt, p, ctx, w_uv, x), (new_c, new_kr)

@@ -168,7 +168,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
                 scratch, length, scratch_len, book, s_max, ventry=None,
-                table=None):
+                table=None, suffix_from=None):
     """Attention sub-block. Returns (out, upd).
 
     ``ventry`` — optional pre-materialised dense view of the packed cache
@@ -177,6 +177,9 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
     ``rt.attn_kernel == "on"`` the pool is walked in-kernel
     (``_attn_entry_paged``); otherwise each row's prefix is gathered
     through the table and attended like a slot row of MB·BS positions.
+    ``suffix_from`` — a target pass's window start for the kernel path
+    (``attention._window``); the gather path keys every entry by its
+    absolute position already.
     """
     cfg = rt.cfg
     view = "draft" if rt.view == "draft" else "target"
@@ -195,7 +198,8 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
         return _attn_entry_paged(rt, bp, x, positions, centry=centry,
                                  scratch=scratch, length=length,
                                  scratch_len=scratch_len, book=book,
-                                 ventry=ventry, table=table)
+                                 ventry=ventry, table=table,
+                                 suffix_from=suffix_from)
     # prefix = cache view with the draft scratch placed after each row's
     # length: every key (MLA: latent) at its absolute position (see
     # gqa_attention)
@@ -227,7 +231,8 @@ def _attn_entry(rt: Runtime, bp: dict, x, positions, *, causal, centry,
 
 
 def _attn_entry_paged(rt: Runtime, bp: dict, x, positions, *, centry,
-                      scratch, length, scratch_len, book, ventry, table):
+                      scratch, length, scratch_len, book, ventry, table,
+                      suffix_from=None):
     """Cached decode through ``kernels/paged_attention``.
 
     The pool stays in pool layout and no row's prefix is gathered. A
@@ -247,7 +252,8 @@ def _attn_entry_paged(rt: Runtime, bp: dict, x, positions, *, centry,
         out, (nc, nkr) = A.mla_attention_paged(
             rt, bp["attn"], x, positions, c_pool=pc.contiguous(),
             kr_pool=pkr.contiguous(), table=table, length=length,
-            scratch=scratch, scratch_len=scratch_len)
+            scratch=scratch, scratch_len=scratch_len,
+            suffix_from=suffix_from)
         return out, {"c": nc, "kr": nkr}
     if ventry is None and KC.is_packed(centry["k"]) and view == "draft":
         if cass.variant != 1:
@@ -263,19 +269,22 @@ def _attn_entry_paged(rt: Runtime, bp: dict, x, positions, *, centry,
         kv_pools = ("plain", pk, pv)
     out, (nk, nv) = A.gqa_attention_paged(
         rt, bp["attn"], x, positions, kv_pools=kv_pools, table=table,
-        length=length, scratch=scratch, scratch_len=scratch_len)
+        length=length, scratch=scratch, scratch_len=scratch_len,
+        suffix_from=suffix_from)
     return out, {"k": nk, "v": nv}
 
 
 def _block(rt: Runtime, bp: dict, entry: str, x, positions, *, mode,
            causal=True, centry=None, scratch=None, length=None,
-           scratch_len=None, book=None, s_max=0, ventry=None, table=None):
+           scratch_len=None, book=None, s_max=0, ventry=None, table=None,
+           suffix_from=None):
     """One transformer block. Returns (x, cache_update)."""
     h = L.norm(rt, bp["norm1"], x)
     out, kv_upd = _attn_entry(rt, bp, h, positions, causal=causal,
                               centry=centry, scratch=scratch, length=length,
                               scratch_len=scratch_len, book=book,
-                              s_max=s_max, ventry=ventry, table=table)
+                              s_max=s_max, ventry=ventry, table=table,
+                              suffix_from=suffix_from)
     upd = dict(kv_upd) if mode in ("decode", "prefill") else {}
     x = x + out
     h = L.norm(rt, bp["norm2"], x)
@@ -305,7 +314,8 @@ def _stack_updates(per_layer: list[dict]) -> dict:
 def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                  positions, *, mode, causal=True, cache_groups=None,
                  scratch_groups=None, length=None, scratch_len=None,
-                 book=None, s_max=0, view_groups=None, table=None):
+                 book=None, s_max=0, view_groups=None, table=None,
+                 suffix_from=None):
     """Run all layer groups; a loop over the repeats R of each group.
 
     Returns (x, updates_groups) with updates stacked along R like the
@@ -327,7 +337,8 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                     causal=causal, centry=pick(cache_groups),
                     scratch=pick(scratch_groups), length=length,
                     scratch_len=scratch_len, book=book, s_max=s_max,
-                    ventry=pick(view_groups), table=table)
+                    ventry=pick(view_groups), table=table,
+                    suffix_from=suffix_from)
                 if upd:
                     g_upd[ekey] = upd
             per_layer.append(g_upd)
@@ -402,14 +413,17 @@ def materialize_cache_view(rt: Runtime, cache: dict) -> list | None:
 
 def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
                    cache: dict, scratch: list | None = None,
-                   scratch_len=None, cache_view: list | None = None):
+                   scratch_len=None, cache_view: list | None = None,
+                   suffix_from=None):
     """q new tokens against the cache. Returns (logits, updates).
 
     ``updates`` mirrors the cache groups: per attention entry the new
     tokens' K/V (R,B,q,Hkv,hd) or MLA latents (R,B,q,·) for the engine to
     commit. Rows are
     independent: per-row ``length`` offsets positions and masks. A paged
-    cache's ``block_table`` addresses its pools.
+    cache's ``block_table`` addresses its pools; a target pass through the
+    paged kernels may give each row's window start ``suffix_from`` (B,)
+    (``engine.window_start``).
     """
     cfg = rt.cfg
     _check_dense(cfg)
@@ -427,7 +441,8 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
         rt, params["dec"], _entries(cfg), x, positions, mode="decode",
         cache_groups=cache["dec"], scratch_groups=scratch, length=length,
         scratch_len=slen, book=book, s_max=_cache_s_max(cfg, cache),
-        view_groups=cache_view, table=cache.get("block_table"))
+        view_groups=cache_view, table=cache.get("block_table"),
+        suffix_from=suffix_from)
     x = L.norm(rt, params["final_norm"], x)
     return L.unembed(rt, params, x), upd
 

@@ -35,6 +35,7 @@ from repro_torch.core.format import CassandraConfig
 from repro_torch.models import model as M
 from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KC
+from repro_torch.serving.blockpool import blocks_needed
 
 _SAMPLING = ("sampling is not ported yet: ROADMAP Queue 1 "
              "(rejection_sample with a torch.Generator); use greedy=True")
@@ -61,6 +62,10 @@ def validate_serving_knobs(cfg: ModelConfig, *, gamma: int, num_slots: int,
                            speculative: bool, paged: bool, block_size: int,
                            num_blocks: int | None,
                            max_prefill_tokens_per_step: int | None,
+                           prefix_cache: bool = False,
+                           prefix_cache_blocks: int | None = None,
+                           swap: bool = False,
+                           swap_store_blocks: int | None = None,
                            ttft_deadline_ms: float | None = None,
                            itl_target_ms: float | None = None,
                            attn_kernel: str = "off",
@@ -109,6 +114,54 @@ def validate_serving_knobs(cfg: ModelConfig, *, gamma: int, num_slots: int,
             "requires the paged layout (paged=True)")
     if attn_kernel != "off" and variant == 2:
         raise ValueError(M.C2_PACKED_ATTN)
+    attention_only = all(e[0] == "a" for g in layer_groups(cfg)
+                         for e in g.entries)
+    if prefix_cache_blocks is not None and not prefix_cache:
+        raise ValueError("prefix_cache_blocks is set but the prefix "
+                         "cache is off")
+    if prefix_cache:
+        if not paged:
+            raise ValueError(
+                "the prefix cache shares physical pool blocks through "
+                "block tables — it requires the paged layout (paged=True)")
+        if not attention_only:
+            raise ValueError(
+                f"{cfg.name}: prefix caching requires pure-attention "
+                "archs — SSM recurrent state is per-request and cannot "
+                "be reconstructed from shared KV blocks")
+        if chunk_size % block_size != 0:
+            raise ValueError(
+                f"chunk_size={chunk_size} must be a multiple of "
+                f"block_size={block_size} when the prefix cache is on: "
+                "cache hits seed prefill at block boundaries, and "
+                "aligned chunks keep warm-start pass boundaries a subset "
+                "of the cold run's (the bitwise-identity condition)")
+        if num_blocks is not None and prefix_cache_blocks is not None \
+                and prefix_cache_blocks > num_blocks - 1:
+            raise ValueError(
+                f"prefix_cache_blocks={prefix_cache_blocks} exceeds the "
+                f"pool's {num_blocks - 1} allocatable blocks")
+    if swap_store_blocks is not None and not swap:
+        raise ValueError("swap_store_blocks is set but preemption/swap "
+                         "is off")
+    if swap:
+        if not paged:
+            raise ValueError(
+                "preemption/swap spills and restores pool blocks through "
+                "block tables — it requires the paged layout (paged=True)")
+        if not attention_only:
+            raise ValueError(
+                f"{cfg.name}: preemption requires pure-attention archs — "
+                "SSM recurrent state lives per-slot (no pool axis), and a "
+                "recycled slot would clobber the victim's state")
+        if swap_store_blocks is not None and block_size >= 1:
+            row_blocks = blocks_needed(s_max, block_size)
+            if swap_store_blocks < row_blocks:
+                raise ValueError(
+                    f"swap_store_blocks={swap_store_blocks} cannot hold "
+                    f"even one full row chain ({row_blocks} blocks at "
+                    f"s_max={s_max}, block_size={block_size}) — no victim "
+                    "would ever be eligible")
 
 
 def validate_request_slos(*, ttft_deadline_ms: float | None = None,
@@ -260,6 +313,21 @@ def spec_decode_step(rt: Runtime, params, cache: dict,
     return res, cache
 
 
+def window_start(length: torch.Tensor, valid: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """(B,) where a target pass's attention suffix begins, for the paged
+    kernels (``attention._window``): a prefill row whose run of ``valid``
+    tokens stays inside one ``width``-wide cell of the position grid
+    starts it at the cell's start, every other row at its ``length``.
+    The scheduler cuts prefill chunks at the cells' edges, so a prompt
+    token's attention is summed in one order whichever position its
+    row's prefill started from (0, a prefix hit, a resume)."""
+    length = length.to(torch.int32)
+    off = torch.remainder(length, width)
+    inside = (valid > 0) & (off + valid.to(torch.int32) <= width)
+    return length - torch.where(inside, off, 0)
+
+
 def unified_step(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
                  chunk_tokens: torch.Tensor, prefill_valid: torch.Tensor,
                  decode_mask: torch.Tensor, ecfg: EngineConfig):
@@ -292,7 +360,10 @@ def unified_step(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
     ver_tokens = torch.cat([cur_tokens, draft_tokens], dim=1)
     tokens = torch.where(is_prefill[:, None], chunk_tokens.to(torch.int32),
                          ver_tokens)
-    t_logits, t_upd = M.forward_decode(rt_t, params, tokens, cache)
+    t_logits, t_upd = M.forward_decode(
+        rt_t, params, tokens, cache,
+        suffix_from=window_start(cache["length"], prefill_valid,
+                                 tokens.shape[1]))
     res = _accept(draft_tokens, draft_logits, t_logits, ecfg)
     n = torch.where(is_prefill,
                     prefill_valid.to(torch.int32).clamp(min=1) - 1,
@@ -310,7 +381,9 @@ def chunk_prefill_step(rt: Runtime, params, cache: dict,
     for rows riding along, which commit one garbage token the caller
     freezes). Returns (logits at each row's last real token, cache)."""
     rt_t = dataclasses.replace(rt, view="target" if rt.cass else "plain")
-    logits, upd = M.forward_decode(rt_t, params, tokens, cache)
+    logits, upd = M.forward_decode(
+        rt_t, params, tokens, cache,
+        suffix_from=window_start(cache["length"], valid, tokens.shape[1]))
     n = valid.to(torch.int32).clamp(min=1) - 1
     cache = commit(rt, cache, upd, n)
     last = torch.gather(logits, 1, n.to(torch.int64)[:, None, None].expand(

@@ -31,8 +31,11 @@ Two layouts share the store codecs:
 
 Appends write into the cache's tensors in place (the reference returns
 new arrays); callers never read a cache again after committing to it, so
-no copy of the stores is ever needed. Block copies, spill and restore
-(prefix cache, swap) are ROADMAP Queue 1.
+no copy of the stores is ever needed. The paged pool's whole-block moves
+(``copy_pool_blocks`` for the prefix cache's copy-on-write,
+``spill_pool_blocks`` / ``restore_pool_blocks`` for preemption's host
+swap) are plain indexing over every leaf, in place too; none of them ever
+writes a new value into the trash block.
 
 MLA stores pack like GQA's when their widths are multiples of 32 (the
 32-lane bitmap): DeepSeek-V3's ``c`` (512) and ``kr`` (64) both do, and
@@ -271,6 +274,98 @@ def append_batched(store, new_store, at: torch.Tensor, table=None):
     if table is None:
         return append_store_batched(store, new_store, at)
     return append_paged_batched(store, new_store, table, at)
+
+
+# ---------------------------------------------------------------------------
+# Whole-block moves over the pool: copy-on-write, spill and restore
+# ---------------------------------------------------------------------------
+
+def _block_index(blocks, device) -> torch.Tensor:
+    return torch.as_tensor(blocks, device=device).to(torch.int64)
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 leaf as its int16 bit view (the same storage): PyTorch's CPU
+    bf16 moves may rewrite NaN payloads, integer moves never do."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def copy_pool_blocks(cache: dict, src, dst) -> dict:
+    """Copy pool blocks ``pool[dst[i]] = pool[src[i]]`` in every attention
+    store leaf, in place: the copy-on-write primitive.
+
+    Leaf by leaf, plain or packed (Cassandra-1 and -2 spec and verif
+    leaves, Llama's K/V and MLA's c/kr alike): nothing is decoded. ``src``
+    and ``dst`` are (K,) block ids padded with ``TRASH_BLOCK`` pairs; a
+    pair whose destination is the trash block copies block 0 onto itself,
+    so block 0 never changes. All sources are read before any destination
+    is written."""
+    dev = cache["length"].device
+    dst = _block_index(dst, dev)
+    src = torch.where(dst == TRASH_BLOCK, TRASH_BLOCK,
+                      _block_index(src, dev))
+    for g in cache["dec"]:
+        for entry in g.values():
+            for store in entry.values():
+                for leaf, _ in _zip_leaves(store, store):
+                    raw = _raw(leaf)
+                    raw[:, dst] = raw[:, src]
+    return cache
+
+
+def spill_pool_blocks(cache: dict, blocks) -> list:
+    """Gather ``pool[blocks]`` out of every attention store leaf: the
+    device half of a swap-out. ``blocks`` is a (K,) vector padded with
+    ``TRASH_BLOCK``. Returns a tree mirroring ``cache["dec"]`` whose
+    leaves are (R, K, BS, …) copies of the blocks, plain or packed (never
+    decoded); entries past the real blocks hold block 0."""
+    idx = _block_index(blocks, cache["length"].device)
+
+    def take(leaf):
+        return _raw(leaf)[:, idx].view(leaf.dtype)
+
+    def gather(store):
+        if not is_packed(store):
+            return take(store)
+        return {z: {k: take(v) for k, v in store[z].items()}
+                for z in ("spec", "verif")}
+    return [{ekey: {nm: gather(s) for nm, s in entry.items()}
+             for ekey, entry in g.items()} for g in cache["dec"]]
+
+
+def restore_pool_blocks(cache: dict, blocks, data: list) -> dict:
+    """Scatter spilled block contents back, in place: ``pool[blocks[i]] =
+    data[i]`` in every attention store leaf (the device half of a
+    swap-in). ``data`` is a tree as ``spill_pool_blocks`` returns it, on
+    the cache's device or on the host (copied over); ``blocks`` a (K,)
+    vector padded with ``TRASH_BLOCK``. Padded entries store block 0's own
+    value back, so the trash block never changes."""
+    dev = cache["length"].device
+    idx = _block_index(blocks, dev)
+    pad = idx == TRASH_BLOCK
+    for g, gd in zip(cache["dec"], data):
+        for ekey, entry in g.items():
+            for nm, store in entry.items():
+                for leaf, d in _zip_leaves(store, gd[ekey][nm]):
+                    raw = _raw(leaf)
+                    d = _raw(d.to(dev, non_blocking=True).to(leaf.dtype))
+                    keep = pad.reshape(1, -1, *([1] * (leaf.ndim - 2)))
+                    raw[:, idx] = torch.where(keep, raw[:, idx], d)
+    return cache
+
+
+def restore_pool_blocks_marked(cache: dict, blocks, data: list):
+    """:func:`restore_pool_blocks` plus a completion *marker*: a CUDA
+    event recorded after the scatter (None on the CPU, where the scatter
+    is done on return). Waiting on the marker proves the restore, its
+    host-to-device copies included, has landed without waiting on the
+    rest of the device."""
+    cache = restore_pool_blocks(cache, blocks, data)
+    if not cache["length"].is_cuda:
+        return cache, None
+    marker = torch.cuda.Event()
+    marker.record()
+    return cache, marker
 
 
 # ---------------------------------------------------------------------------

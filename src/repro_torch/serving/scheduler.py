@@ -24,6 +24,35 @@ slowest one.
   request reserves its worst-case blocks at admission and allocates them
   as it grows. ``attn_kernel="on"`` walks the tables in the paged
   attention kernels instead of gathering each row's prefix.
+* **Prefix sharing** (``prefix_cache=True``, paged only) — a host-side
+  radix index (``serving.prefixcache``) maps block-aligned prompt-prefix
+  runs to ref-counted pool blocks. Admission matches the longest cached
+  prefix, aliases the matched blocks into the row's table, seeds
+  ``pos``/``length`` past the matched tokens and reserves only the
+  unshared blocks; prefill then starts mid-prompt. A request diverging
+  inside a cached block gets a fresh block and one block copy
+  (copy-on-write, ``kvcache.copy_pool_blocks``); shared blocks are never
+  written. Retired requests park their indexed blocks: resident, and
+  evicted least recently used first when reservations need the space.
+  The index persists across ``reset()``. Prefill chunks end on multiples
+  of the pass width (``_chunk_len``) and a target pass's attention suffix
+  starts on that grid (``engine.window_start``), so a prompt token gets
+  the same bits whether its row's prefill started at 0, after a hit or
+  at a resume: the paged kernels' pool walk and the suffix merge sum in
+  an order that depends on where the suffix starts.
+* **Preemption + host swap** (``swap=True``, paged only) — when the
+  queue head cannot reserve (blocks or slots), the victim policy may swap
+  a resident row out: its committed blocks are gathered on the device
+  (``kvcache.spill_pool_blocks``) into pinned host buffers of a
+  ``SpillStore`` (``serving.swapstore``), its blocks and reservation
+  return to the pool, and the head admits at once. The victim requeues
+  and resumes as an ordinary admission: a prefix match re-aliases what
+  the cache still holds, and ``kvcache.restore_pool_blocks`` brings back
+  the rest bit for bit. Victims: the lowest priority first, only rows
+  whose remaining work exceeds the head's time to first token plus the
+  swap margin, and among equal priorities only rows with more remaining
+  work than the head (no thrashing between two long rows); in goodput
+  mode a row whose live SLO is still winnable is never a victim.
 * **Retirement** — per row on ``max_new``, the global ``eos_id`` or any of
   the request's ``stop_tokens``; the slot and its blocks free at once.
 * **Async overlap** (``overlap=True``, fused mode's default) — a
@@ -38,16 +67,18 @@ slowest one.
   advances it in the step), then harvests the previous cycle. A row
   retired one cycle late rides one more cycle as a *zombie* whose results
   are discarded. Host arrays reach the device through pinned copies, so
-  no push waits for the in-flight step.
+  no push waits for the in-flight step. A spill's device-to-host copies
+  and a restore's scatter are enqueued in the same stream order (so no
+  later step can rewrite a freed block before its copy is taken, and the
+  next step reads restored blocks) and are waited on, each on its own
+  event, at the next harvest.
 * **Latency accounting** — every delivered token records its cycle and
   wall time; ``summary()`` reports TTFT and inter-token latency.
 
 jit retraces have no eager counterpart: each step instead records the
 operand shapes it was dispatched with (``step_shapes``; ``trace_counts``
 counts them per step), the bucket discipline a CUDA graph per step needs.
-Greedy decoding only. The prefix cache (copy-on-write) and preemption
-with host swap are ROADMAP Queue 1 item 7: ``prefix_cache=True`` and
-``swap=True`` raise.
+Greedy decoding only.
 """
 from __future__ import annotations
 
@@ -72,11 +103,17 @@ from repro_torch.serving.engine import (_SAMPLING, EngineConfig,
                                         chunk_prefill_step, spec_decode_step,
                                         unified_step, validate_request_slos,
                                         validate_serving_knobs)
+from repro_torch.serving.prefixcache import PrefixCache, PrefixMatch
+from repro_torch.serving.swapstore import SpillStore
 from repro_torch.serving.telemetry import Telemetry
 
 QUEUED, RUNNING, FINISHED = "queued", "running", "finished"
-_ITEM7 = ("{what} is not ported yet: ROADMAP Queue 1 item 7 (prefix cache "
-          "with copy-on-write, preemption with host swap)")
+# preempted: swapped out to the host SpillStore, waiting to resume
+SWAPPED = "swapped"
+
+# cycles a preemption is budgeted to cost the victim (spill + restore):
+# part of the bar the queue head's TTFT gain must clear
+SWAP_MARGIN_CYCLES = 2
 
 
 @dataclasses.dataclass(eq=False)
@@ -84,10 +121,13 @@ class Request:
     """One generation request moving through the scheduler lifecycle.
 
     ``priority`` orders admission (higher first among ready requests, FIFO
-    within a priority). ``ttft_deadline_ms`` / ``itl_target_ms`` are
-    per-request SLOs: once any request declares one, admission order and
-    the wide-cycle choice switch to deadline-hit goodput. SLOs never
-    change a request's tokens, only when they land."""
+    within a priority) and shields against preemption (lower priority
+    preempted first). A preempted request carries its ``swap_key`` into
+    the host ``SpillStore`` until it resumes. ``ttft_deadline_ms`` /
+    ``itl_target_ms`` are per-request SLOs: once any request declares one,
+    admission order, the wide-cycle choice and the preemption victims
+    switch to deadline-hit goodput. SLOs never change a request's tokens,
+    only when they land."""
     rid: int
     tokens: np.ndarray                  # (L,) int prompt
     max_new: int
@@ -99,12 +139,15 @@ class Request:
     state: str = QUEUED
     slot: int = -1
     pos: int = 0                        # prompt tokens prefilled so far
+    prefix_matched: int = 0             # prompt tokens seeded from the cache
     prefill_done: bool = False
     output: list = dataclasses.field(default_factory=list)
     token_cycles: list = dataclasses.field(default_factory=list)
     token_walls: list = dataclasses.field(default_factory=list)
     admitted_at: float = -1.0
     finished_at: float = -1.0
+    swap_key: object = None             # SpillStore key while SWAPPED
+    preemptions: int = 0                # times this request was swapped out
 
     @property
     def done(self) -> bool:
@@ -237,15 +280,14 @@ class Scheduler:
                  num_blocks: int | None = None, chunk_size: int = 32,
                  fused: bool = True,
                  max_prefill_tokens_per_step: int | None = None,
-                 prefix_cache: bool = False, swap: bool = False,
+                 prefix_cache: bool = False,
+                 prefix_cache_blocks: int | None = None,
+                 swap: bool = False,
+                 swap_store_blocks: int | None = None,
                  slo_aware: bool = True, attn_kernel: str = "off",
                  overlap: bool = True,
                  debug_invariants: int | None = None,
                  telemetry: Telemetry | None = None, device="cuda"):
-        if prefix_cache:
-            raise NotImplementedError(_ITEM7.format(what="prefix_cache=True"))
-        if swap:
-            raise NotImplementedError(_ITEM7.format(what="swap=True"))
         if not ecfg.greedy:
             raise NotImplementedError(_SAMPLING)
         self.device = torch.device(device)
@@ -267,7 +309,10 @@ class Scheduler:
             speculative=speculative, paged=paged, block_size=block_size,
             num_blocks=num_blocks,
             max_prefill_tokens_per_step=max_prefill_tokens_per_step,
-            attn_kernel=attn_kernel, variant=cass.variant if cass else 0)
+            prefix_cache=prefix_cache,
+            prefix_cache_blocks=prefix_cache_blocks, swap=swap,
+            swap_store_blocks=swap_store_blocks, attn_kernel=attn_kernel,
+            variant=cass.variant if cass else 0)
         self.attn_kernel = attn_kernel
         self.overlap = overlap and self.fused
         if paged:
@@ -276,6 +321,10 @@ class Scheduler:
             self.num_blocks = (num_blocks if num_blocks is not None
                                else num_slots * self.max_blocks + 1)
         self.max_prefill_tokens_per_step = max_prefill_tokens_per_step
+        self.prefix_cache_enabled = prefix_cache
+        self.prefix_cache_blocks = prefix_cache_blocks
+        self.swap = swap
+        self.swap_store_blocks = swap_store_blocks
         self.slo_aware = slo_aware
         # online measured cost model (ms per step bucket); persists
         # across reset()
@@ -302,12 +351,13 @@ class Scheduler:
         # operand shapes each step was dispatched with (persist across
         # reset(), like the steps they describe)
         self.step_shapes: dict[str, set] = {}
-        self.reset()
+        self._reset_state()
 
-    def reset(self) -> None:
-        """Clear queue, slots and stats for a fresh run on the same cache:
-        admission re-prefills a slot's region (or re-points its table), so
-        stale cache contents are harmless."""
+    def _reset_state(self) -> None:
+        prev_slots: list = getattr(self, "slots", [])
+        prev_pool: BlockAllocator | None = getattr(self, "pool", None)
+        prev_prefix: PrefixCache | None = getattr(self, "prefix", None)
+        prev_spill: SpillStore | None = getattr(self, "spill", None)
         self.slots: list[Request | None] = [None] * self.num_slots
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
@@ -319,32 +369,81 @@ class Scheduler:
         self.metrics = self.telemetry.metrics
         self.metrics.declare(
             "cycles", "prefill_cycles", "mixed_cycles", "prefill_tokens",
-            "committed", "accepted", "drafted", "admitted", "finished")
+            "committed", "accepted", "drafted", "admitted", "finished",
+            "prefix_queries", "prefix_hits", "prefix_matched_tokens",
+            "prefix_blocks_aliased", "cow_copies", "preemptions",
+            "swap_resumes", "swap_out_blocks", "swap_in_blocks",
+            "swap_matched_blocks")
         for peak in ("peak_prefill_tokens_per_cycle",
-                     "peak_resident_tokens", "peak_reserved_tokens"):
+                     "peak_resident_tokens", "peak_reserved_tokens",
+                     "peak_swapped_tokens"):
             self.metrics.gauge(peak, 0)
         self._next_rid = 0
+        self._next_swap_key = 0
         self._steps_since_check = 0
         self._slo_seen = False
-        # pipeline state: the dispatched-unharvested cycle and the staged
-        # next-chunk operands; reset() drops them
+        self.prefix: PrefixCache | None = None
+        self._pending_cow: list[tuple[int, int]] = []
+        # pipeline state: the dispatched-unharvested cycle, the staged
+        # next-chunk operands, and spill / restore copies waiting for the
+        # next harvest; reset() drops them (a spill still staged in the
+        # previous store is waited on first)
         self._in_flight: PendingCycle | None = None
         self._staged_chunk: tuple | None = None
+        self._swaps_in_flight: list[tuple] = []
+        if prev_spill is not None:
+            prev_spill.clear()
         if self.paged:
-            self.pool = BlockAllocator(self.num_blocks)
+            if prev_pool is not None and prev_prefix is not None:
+                # the radix index persists across reset: every live owner
+                # is released, so only parked (cacheable) chains stay
+                # resident, their device bytes intact (parked blocks are
+                # never on the free list) and matchable next run
+                for slot, r in enumerate(prev_slots):
+                    if r is not None:
+                        prev_pool.release(slot)
+                for key in prev_pool.swapped_keys():
+                    prev_pool.drop_swapped(key)
+                # per-run peak: restart at the parked chains' occupancy
+                prev_pool.high_water = (prev_pool.allocated_total
+                                        + prev_pool.parked_total)
+                self.pool = prev_pool
+                self.prefix = prev_prefix
+            else:
+                self.pool = BlockAllocator(self.num_blocks)
+                if self.prefix_cache_enabled:
+                    self.prefix = PrefixCache(self.pool, self.block_size,
+                                              self.prefix_cache_blocks)
             self.table = np.full((self.num_slots, self.max_blocks),
                                  TRASH_BLOCK, np.int32)
+            # per-slot logical->physical block lists (shared prefix blocks
+            # first, then blocks charged to the slot's reservation)
             self.row_blocks: list[list[int]] = \
                 [[] for _ in range(self.num_slots)]
+            # per-slot (trie node, block index) insert watermark, so the
+            # incremental prefix indexing never re-walks committed blocks
+            self.row_index: list[tuple] = [(None, 0)] * self.num_slots
+        # host spill store for preempted rows (fresh per run: swapped
+        # requests of the previous run were dropped with the queue)
+        self.spill = SpillStore(self.swap_store_blocks) if self.swap \
+            else None
         self.metrics.set_config("paged", self.paged)
-        self.metrics.set_config("prefix_cache", False)
-        self.metrics.set_config("swap", False)
+        self.metrics.set_config("prefix_cache", self.prefix is not None)
+        self.metrics.set_config("swap", self.swap)
         self.metrics.set_config("slo_aware", self.slo_aware)
         self.metrics.set_config("slo_declared", self._slo_seen)
         self.metrics.set_config("attn_kernel", self.attn_kernel)
         self.metrics.set_config("fused", self.fused)
         self.metrics.set_config("speculative", self.speculative)
         self.metrics.set_config("overlap", self.overlap)
+
+    def reset(self) -> None:
+        """Clear queue, slots and stats for a fresh run on the same cache:
+        admission re-prefills a slot's region (or re-points its table), so
+        stale cache contents are harmless. The prefix index persists:
+        parked chains stay resident and matchable, while live rows are
+        released so their private blocks return to the pool."""
+        self._reset_state()
 
     @property
     def trace_counts(self) -> dict:
@@ -418,25 +517,164 @@ class Scheduler:
             self._worst_case_tokens(len(req.tokens), req.max_new),
             self.block_size)
 
-    def _admit(self, req: Request, slot: int) -> None:
+    def _admission_plan(self, req: Request
+                        ) -> tuple[int, PrefixMatch | None, int]:
+        """(blocks to reserve, cached-prefix match, parked blocks the
+        admission would pin). The reservation charges only unshared
+        blocks: fully matched prefix blocks are aliased, not allocated.
+        The copy-on-write block of a partial match is charged (it is a
+        private divergence copy)."""
+        need = self._request_blocks(req)
+        if self.prefix is None:
+            return need, None, 0
+        m = self.prefix.match(req.tokens)
+        pinned = list(m.nodes)
+        if m.partial is not None and m.partial_len > 0:
+            pinned.append(m.partial)
+        pins = sum(1 for n in pinned if self.pool.is_parked(n.block))
+        return need - len(m.nodes), m, pins
+
+    def _resume_plan(self, req: Request) -> tuple[int, list, int]:
+        """(blocks to reserve, matched trie nodes to re-alias, parked
+        blocks the resume would pin) for a SWAPPED request: an
+        admission-shaped prefix match capped at the row's own committed
+        full blocks (a since-deepened cache never fast-forwards the row
+        past its saved position); the spilled chain covers the rest."""
+        chain = self.spill.get(req.swap_key)
+        need = self._request_blocks(req)
+        if self.prefix is None:
+            return need, [], 0
+        m = self.prefix.match(req.tokens)
+        usable = min(len(m.nodes), req.pos // self.block_size,
+                     chain.n_blocks)
+        nodes = list(m.nodes[:usable])
+        pins = sum(1 for n in nodes if self.pool.is_parked(n.block))
+        return need - len(nodes), nodes, pins
+
+    def _admit_resumed(self, req: Request, slot: int,
+                       plan: tuple[int, list, int]) -> None:
+        """Swap a preempted request back in: re-reserve, re-alias the
+        still-cached prefix, restore the spilled tail bit for bit, and
+        re-seed the slot's host state (length, position, last token).
+        Output, latency stamps and ``admitted_at`` survive: the request
+        continues, it does not restart."""
+        chain = self.spill.get(req.swap_key)
+        n_reserve, nodes, _ = plan
+        req.state, req.slot = RUNNING, slot
+        self.slots[slot] = req
+        self.pool.swap_in(req.swap_key, slot, n_reserve)
+        self.table[slot, :] = TRASH_BLOCK
+        blocks: list[int] = []
+        for node in nodes:
+            self.pool.share(slot, node.block)
+            blocks.append(node.block)
+        matched = len(nodes)
+        restore_n = chain.n_blocks - matched
+        for _ in range(restore_n):
+            blocks.append(self.pool.alloc(slot))
+        if restore_n:
+            vec = np.full(self.max_blocks, TRASH_BLOCK, np.int32)
+            vec[:restore_n] = blocks[matched:]
+            data = chain.slice_blocks(matched, chain.n_blocks,
+                                      self.max_blocks)
+            vec_d = self._to_device(vec)
+            self._record_shapes("restore", vec_d)
+            t0 = time.perf_counter()
+            self.cache, marker = KC.restore_pool_blocks_marked(
+                self.cache, vec_d, data)
+            if self.overlap:
+                # the host-to-device copies and the scatter overlap the
+                # fused step this admission rides (enqueued before it, so
+                # stream order makes the step read the restored blocks);
+                # the marker is waited on at the next harvest
+                self._stamp_wall("restore.dispatch", t0)
+                self._swaps_in_flight.append(
+                    ("restore", marker, time.perf_counter() - t0,
+                     self.clock))
+            else:
+                # wait on the restore's own event, not the device, so the
+                # stamped wall covers the copies and the scatter
+                if marker is not None:
+                    marker.synchronize()
+                self._stamp_wall("restore", t0)
+            self.tracer.emit(TM.RESTORE, rid=req.rid, slot=slot,
+                             cycle=self.clock, args=(restore_n,))
+        self.row_blocks[slot] = blocks
+        self.row_index[slot] = (nodes[-1] if nodes else None, matched)
+        if blocks:
+            self.table[slot, :len(blocks)] = blocks
+        self.lengths[slot] = chain.length
+        self.cur[slot, 0] = chain.cur
+        req.pos = chain.pos
+        self.spill.pop(req.swap_key)
+        req.swap_key = None
+        self.metrics.inc("swap_resumes")
+        self.metrics.inc("swap_in_blocks", restore_n)
+        self.metrics.inc("swap_matched_blocks", matched)
+        self.tracer.emit(TM.RESUME, rid=req.rid, slot=slot,
+                         cycle=self.clock, args=(matched, restore_n))
+
+    def _admit(self, req: Request, slot: int,
+               plan: tuple[int, PrefixMatch | None, int] | None) -> None:
+        if req.state == SWAPPED:
+            self._admit_resumed(req, slot, plan)
+            return
         req.state, req.slot, req.admitted_at = RUNNING, slot, self.clock
         req.pos, req.prefill_done, req.output = 0, False, []
+        req.prefix_matched = 0
         req.token_cycles, req.token_walls = [], []
         self.slots[slot] = req
         self.lengths[slot] = 0
         if self.paged:
+            n_reserve, m, _ = plan
             # keyed by slot, not rid: slots are unique while occupied
-            self.pool.reserve(slot, self._request_blocks(req))
+            self.pool.reserve(slot, n_reserve)
             self.table[slot, :] = TRASH_BLOCK
-            self.row_blocks[slot] = []
+            blocks: list[int] = []
+            if m is not None:
+                self.metrics.inc("prefix_queries")
+                for node in m.nodes:
+                    self.pool.share(slot, node.block)
+                    blocks.append(node.block)
+                matched = m.full_tokens
+                self.metrics.inc("prefix_blocks_aliased", len(m.nodes))
+                if m.partial is not None and m.partial_len > 0:
+                    # diverges inside a cached block: pin the source for
+                    # the row's lifetime (it must survive until the copy
+                    # lands) and take a fresh block to diverge in
+                    self.pool.share(slot, m.partial.block)
+                    dst = self.pool.cow(slot, m.partial.block)
+                    self._pending_cow.append((m.partial.block, dst))
+                    blocks.append(dst)
+                    matched += m.partial_len
+                    self.metrics.inc("cow_copies")
+                if matched:
+                    self.metrics.inc("prefix_hits")
+                    self.metrics.inc("prefix_matched_tokens", matched)
+                self.metrics.observe("prefix_hit_depth", matched)
+                # prefill starts past the matched tokens
+                req.pos = req.prefix_matched = matched
+                self.lengths[slot] = matched
+            self.row_blocks[slot] = blocks
+            # the matched chain is indexed already: incremental insertion
+            # starts at its tail (the CoW block is indexed once prefill
+            # fills it)
+            if self.prefix is not None:
+                self.row_index[slot] = (
+                    m.nodes[-1] if m.nodes else None, len(m.nodes))
+            if blocks:
+                self.table[slot, :len(blocks)] = blocks
         self.metrics.inc("admitted")
         self.tracer.emit(TM.ADMIT, rid=req.rid, slot=slot,
-                         cycle=self.clock, args=(0,))
+                         cycle=self.clock, args=(req.prefix_matched,))
 
     def _admit_ready(self) -> None:
         """Admit ready requests in order (``_next_ready_index``). When
-        paged, the head request gates on its reservation and waits rather
-        than being skipped, so small requests cannot starve it."""
+        paged, the head request gates on its reservation (its unshared
+        blocks plus the parked cache blocks it would pin) and waits rather
+        than being skipped, so small requests cannot starve it, unless
+        preemption (``swap=True``) frees the room by swapping out a
+        resident row the victim policy deems cheaper."""
         while True:
             idx = self._next_ready_index()
             if idx is None:
@@ -444,13 +682,37 @@ class Scheduler:
             req = self.queue[idx]
             slot = next((s for s in range(self.num_slots)
                          if self.slots[s] is None), None)
-            if slot is None:
-                return
-            if self.paged and not self.pool.can_reserve(
-                    self._request_blocks(req)):
-                return
+            plan = self._plan_for(req) if self.paged else None
+            fits = plan is None or self.pool.can_reserve(plan[0], plan[2])
+            if slot is None or not fits:
+                if not self.swap:
+                    return
+                plan = self._try_preempt_for(
+                    req, self._matched_plan_tokens(plan))
+                if plan is None:
+                    return
+                # preemption requeued victims at the front: re-resolve the
+                # head's queue position and the (now free) slot
+                idx = next(i for i, r in enumerate(self.queue) if r is req)
+                slot = next((s for s in range(self.num_slots)
+                             if self.slots[s] is None), None)
+                if slot is None:
+                    return
             del self.queue[idx]
-            self._admit(req, slot)
+            self._admit(req, slot, plan)
+
+    @staticmethod
+    def _matched_plan_tokens(plan) -> int:
+        """Cached-prefix tokens the head's plan would skip (0 without the
+        cache): the victim policy's TTFT estimate input."""
+        if plan is None:
+            return 0
+        m = plan[1]
+        if m is None:
+            return 0
+        if isinstance(m, PrefixMatch):
+            return m.full_tokens
+        return sum(len(n.key) for n in m)       # resume plan: node list
 
     # -- SLO goodput model ---------------------------------------------------
 
@@ -475,9 +737,13 @@ class Scheduler:
         return (req.token_cycles[-1]
                 + self.cost.ms_to_cycles(req.itl_target_ms))
 
-    def _admit_to_first_token_cycles(self, req: Request) -> int:
+    def _admit_to_first_token_cycles(self, req: Request,
+                                     matched: int) -> int:
+        """Cycles from admitting ``req`` now to its first (or, resumed,
+        next) token: prefill of the unmatched prompt at the riding width,
+        plus the cycle that commits the token."""
         width = self.ecfg.gamma + 1 if self.speculative else 1
-        unprefilled = max(len(req.tokens) - req.pos, 0)
+        unprefilled = max(len(req.tokens) - max(req.pos, matched), 0)
         return -(-unprefilled // width) + 1
 
     def _admission_key(self, idx: int, req: Request) -> tuple:
@@ -486,7 +752,8 @@ class Scheduler:
         dl = self._next_event_deadline_cycles(req)
         if dl is None:
             return (1, 0.0, -req.priority, idx)
-        feasible = self.clock + self._admit_to_first_token_cycles(req) <= dl
+        feasible = (self.clock
+                    + self._admit_to_first_token_cycles(req, req.pos) <= dl)
         return (0 if feasible else 2, dl, -req.priority, idx)
 
     def _next_ready_index(self) -> int | None:
@@ -502,6 +769,148 @@ class Scheduler:
             if best is None or key < best_key:
                 best, best_key = i, key
         return best
+
+    # -- preemption (victim policy + host swap) ------------------------------
+
+    def _remaining_cycles(self, req: Request) -> int:
+        """A row's remaining work in worst-case cycles: γ+1-wide prefill
+        passes for the unprefilled prompt plus one cycle per owed token."""
+        width = self.ecfg.gamma + 1 if self.speculative else 1
+        prefill = 0 if req.prefill_done else \
+            -(-max(len(req.tokens) - req.pos, 0) // width)
+        return prefill + max(req.max_new - len(req.output), 0)
+
+    def _head_admit_cycles(self, head: Request, matched: int) -> int:
+        """The head's time to first token if admitted now, plus the swap
+        round-trip margin a preemption spends to make room."""
+        return (self._admit_to_first_token_cycles(head, matched)
+                + SWAP_MARGIN_CYCLES)
+
+    def _victim_slo_at_risk(self, req: Request) -> bool:
+        """Would preempting this resident row sacrifice an SLO it can
+        still hit (its next-token deadline live and reachable if it stays
+        resident)? Rows with no pending or an already hopeless deadline
+        cost no goodput."""
+        dl = self._next_event_deadline_cycles(req)
+        if dl is None:
+            return False
+        return self.clock + self._admit_to_first_token_cycles(
+            req, req.pos) <= dl
+
+    def _preempt(self, victim: Request) -> None:
+        """Swap ``victim`` out: flush any copy-on-write it is owed, gather
+        its committed blocks into the host store (before the allocator
+        frees them), release its blocks and reservation (``swap_out``:
+        shared prefix blocks drop a pin and stay matchable), and requeue
+        it at the front with its original arrival. The chain holds all a
+        bit-exact resume needs (length, prompt position, last token, KV
+        bytes)."""
+        if self._pending_cow:
+            self._flush_cow()
+        slot = victim.slot
+        n_res = blocks_needed(int(self.lengths[slot]), self.block_size)
+        vec = np.full(self.max_blocks, TRASH_BLOCK, np.int32)
+        vec[:n_res] = self.row_blocks[slot][:n_res]
+        # an opaque token disjoint from the slot-index owners: a bare int
+        # would collide with a slot in the allocator's reservation maps
+        key = ("swap", self._next_swap_key)
+        self._next_swap_key += 1
+        vec_d = self._to_device(vec)
+        self._record_shapes("spill", vec_d)
+        t0 = time.perf_counter()
+        bytes_before = self.spill.nbytes
+        data = KC.spill_pool_blocks(self.cache, vec_d)
+        if self.overlap:
+            # the gather lands in buffers of its own, and any later step
+            # that rewrites the freed blocks is enqueued after it, so block
+            # reuse is ordered after the copy; the device-to-host copies
+            # are waited on at the next harvest
+            self.spill.put_async(key, data, n_res,
+                                 length=int(self.lengths[slot]),
+                                 pos=victim.pos, cur=int(self.cur[slot, 0]))
+            self._stamp_wall("spill.dispatch", t0)
+            self._swaps_in_flight.append(
+                ("spill", key, time.perf_counter() - t0, self.clock))
+        else:
+            self.spill.put(key, data, n_res, length=int(self.lengths[slot]),
+                           pos=victim.pos, cur=int(self.cur[slot, 0]))
+            self._stamp_wall("spill", t0)
+        self.tracer.emit(TM.SPILL, rid=victim.rid, slot=slot,
+                         cycle=self.clock,
+                         args=(n_res, self.spill.nbytes - bytes_before))
+        self.pool.swap_out(slot, key, n_res)
+        self.table[slot, :] = TRASH_BLOCK
+        self.row_blocks[slot] = []
+        self.row_index[slot] = (None, 0)
+        self.slots[slot] = None
+        self.lengths[slot] = 0
+        victim.state, victim.slot, victim.swap_key = SWAPPED, -1, key
+        victim.preemptions += 1
+        self.queue.appendleft(victim)
+        self.metrics.inc("preemptions")
+        self.metrics.inc("swap_out_blocks", n_res)
+        self.tracer.emit(TM.PREEMPT, rid=victim.rid, slot=slot,
+                         cycle=self.clock, args=(n_res,))
+
+    def _plan_for(self, req: Request):
+        """The request's admission plan: resume-shaped for a SWAPPED
+        request, fresh otherwise; both (blocks to reserve, cached match,
+        parked blocks the admission would pin)."""
+        return (self._resume_plan(req) if req.state == SWAPPED
+                else self._admission_plan(req))
+
+    def _try_preempt_for(self, head: Request, matched: int):
+        """Victim policy: free room for the queue head by swapping out
+        resident rows whose remaining work exceeds the head's time to
+        first token (plus the swap margin). Order: lowest priority first,
+        most remaining work within a priority. An equal-priority victim
+        also needs more remaining work than the head's total (shortest
+        remaining first), so two long rows never preempt each other in a
+        loop. In goodput mode a row whose live SLO is still winnable is
+        never a victim, SLO-free rows go before blown-SLO rows, and
+        ``priority`` breaks ties; a deadline-free head keeps the plain bar.
+
+        Returns the head's refreshed plan once it fits the pool, else None
+        (rows already preempted stay out and resume on their own merit)."""
+        head_cost = self._head_admit_cycles(head, matched)
+        head_rem = self._remaining_cycles(head)
+        slo_mode = self._slo_active
+        head_dl = (self._next_event_deadline_cycles(head)
+                   if slo_mode else None)
+        cands = []
+        for r in self.slots:
+            if r is None:
+                continue
+            rem = self._remaining_cycles(r)
+            if rem <= head_cost:
+                continue                    # not worth the head's wait
+            if slo_mode:
+                if self._victim_slo_at_risk(r):
+                    continue                # never sacrifice a live SLO
+                if head_dl is None:
+                    if r.priority > head.priority:
+                        continue            # never preempt upward
+                    if r.priority == head.priority and rem <= head_rem:
+                        continue            # anti-thrash: SRPT order
+                cands.append(((1 if r.has_slo else 0), r.priority,
+                              -rem, r.slot, r))
+                continue
+            if r.priority > head.priority:
+                continue                    # never preempt upward
+            if r.priority == head.priority and rem <= head_rem:
+                continue                    # anti-thrash: SRPT order
+            cands.append((r.priority, -rem, r.slot, r))
+        for cand in sorted(cands, key=lambda c: c[:-1]):
+            victim = cand[-1]
+            n_res = blocks_needed(int(self.lengths[victim.slot]),
+                                  self.block_size)
+            if not self.spill.can_hold(n_res):
+                continue                    # host store full: skip victim
+            self._preempt(victim)
+            plan = self._plan_for(head)
+            if self.pool.can_reserve(plan[0], plan[2]):
+                return plan
+        return None
 
     # -- retirement --------------------------------------------------------
 
@@ -585,13 +994,51 @@ class Scheduler:
 
     def _grow_blocks(self, req: Request, n_tokens: int) -> None:
         """Allocate pool blocks until ``req`` covers ``n_tokens`` (within
-        its reservation) and map them into its table row."""
+        its reservation) and map them into its table row. Shared prefix
+        blocks head the row's list; only the unshared tail draws on the
+        reservation."""
         blocks = self.row_blocks[req.slot]
         while len(blocks) * self.block_size < n_tokens:
             blocks.append(self.pool.alloc(req.slot))
         self.table[req.slot, :len(blocks)] = blocks
 
+    def _flush_cow(self) -> None:
+        """Enqueue the pending copy-on-write block copies, ``num_slots``
+        pairs a call padded with trash -> trash no-ops (one operand
+        shape), before the cycle's step so a diverging row's seeded
+        tokens are in place before anything reads them."""
+        k = self.num_slots
+        while self._pending_cow:
+            batch, self._pending_cow = (self._pending_cow[:k],
+                                        self._pending_cow[k:])
+            src = np.full(k, TRASH_BLOCK, np.int32)
+            dst = np.full(k, TRASH_BLOCK, np.int32)
+            for i, (s, d) in enumerate(batch):
+                src[i], dst[i] = s, d
+            src_d, dst_d = self._to_device(src), self._to_device(dst)
+            self._record_shapes("cow", src_d, dst_d)
+            t0 = time.perf_counter()
+            self.cache = KC.copy_pool_blocks(self.cache, src_d, dst_d)
+            # a dispatch-only stamp: the copy stays asynchronous
+            self._stamp_wall("cow", t0)
+
+    def _index_prefix(self, req: Request) -> None:
+        """Register the row's newly committed full prompt blocks in the
+        radix cache (incremental: from the slot's watermark)."""
+        if self.prefix is None:
+            return
+        slot = req.slot
+        node, start = self.row_index[slot]
+        node, _ = self.prefix.insert(req.tokens, self.row_blocks[slot],
+                                     req.pos, node=node, start=start)
+        # the returned node's depth, not pos // block_size, is the resume
+        # point: insert may stop early (another row's identical run) or
+        # restart from the root (a stale hint)
+        self.row_index[slot] = (node, node.depth)
+
     def _push_host_state(self) -> None:
+        if self._pending_cow:
+            self._flush_cow()
         self.cache["length"] = self._to_device(self.lengths.astype(np.int32))
         if self.paged:
             self.cache["block_table"] = self._to_device(self.table)
@@ -606,6 +1053,12 @@ class Scheduler:
         else:
             reserved = sum(r is not None for r in self.slots) * self.s_max
         self.metrics.gauge_max("peak_reserved_tokens", reserved)
+        if self.paged and self.swap:
+            # swapped rows hold no device blocks: their tokens live on the
+            # host and are reported apart from the pool's residency
+            self.metrics.gauge_max(
+                "peak_swapped_tokens",
+                self.pool.swapped_blocks_total * self.block_size)
         if self.tracer.enabled:
             occ = self.pool.occupancy() if self.paged else None
             self.tracer.emit(TM.COUNTERS,
@@ -625,7 +1078,7 @@ class Scheduler:
         tokens = np.zeros((self.num_slots, c), np.int32)
         valid = np.zeros(self.num_slots, np.int32)
         for r in prefilling:
-            v = min(c, len(r.tokens) - r.pos)
+            v = self._chunk_len(r, r.pos, c)
             tokens[r.slot, :v] = r.tokens[r.pos:r.pos + v]
             valid[r.slot] = v
             if self.paged:
@@ -652,6 +1105,7 @@ class Scheduler:
             self.metrics.inc("prefill_tokens", v)
             self.tracer.emit(TM.PREFILL_CHUNK, rid=r.rid, slot=r.slot,
                              cycle=p.clock, args=(v, r.pos))
+            self._index_prefix(r)
             if r.pos >= len(r.tokens):
                 self._finish_prefill(r, last[r.slot], cycle=p.clock)
         self.metrics.inc("prefill_cycles")
@@ -662,6 +1116,15 @@ class Scheduler:
         _land(p)
         self._stamp_wall("chunk", p.t0)
         self._harvest_wide(p)
+
+    @staticmethod
+    def _chunk_len(req: Request, pos: int, width: int) -> int:
+        """Prompt tokens a ``width``-wide pass takes from ``pos``: up to
+        the next multiple of ``width``, so a row that starts mid-grid (a
+        prefix hit, a resume) gets the same chunk boundaries, and with
+        them the same attention sums (``engine.window_start``), as a row
+        prefilled from position 0."""
+        return min(width - pos % width, len(req.tokens) - pos)
 
     def _finish_prefill(self, req: Request, last_logits: np.ndarray,
                         cycle: float | None = None) -> None:
@@ -695,7 +1158,7 @@ class Scheduler:
                 dmask[slot] = True
                 decoding.append(r)
             elif budget > 0:
-                v = min(width, len(r.tokens) - r.pos, budget)
+                v = min(self._chunk_len(r, r.pos, width), budget)
                 chunk[slot, :v] = r.tokens[r.pos:r.pos + v]
                 valid[slot] = v
                 budget -= v
@@ -809,6 +1272,7 @@ class Scheduler:
                 self.metrics.inc("prefill_tokens", v)
                 self.tracer.emit(TM.PREFILL_CHUNK, rid=r.rid, slot=r.slot,
                                  cycle=cycle, args=(v, r.pos))
+                self._index_prefix(r)
                 if r.pos >= len(r.tokens):
                     self._finish_prefill(r, last[r.slot], cycle=cycle)
             self.metrics.inc("prefill_cycles")
@@ -854,12 +1318,14 @@ class Scheduler:
         host state cannot change the schedule: nothing queued, every
         resident row past prefill and more than γ+1 tokens from its cap
         (cap-driven retires are foreseen; only stop tokens make zombies),
-        and the in-flight cycle itself pure decode."""
+        no copy-on-write owed, and the in-flight cycle itself pure
+        decode."""
         p = self._in_flight
         horizon = self.ecfg.gamma + 1
         return (p is not None and p.kind == "unified"
                 and not p.plan.prefilling
                 and not self.queue
+                and not self._pending_cow
                 and all(r is None or (r.prefill_done
                                       and len(r.output) + horizon
                                       < r.max_new)
@@ -868,7 +1334,8 @@ class Scheduler:
     def _harvest_pending(self) -> None:
         """Land the in-flight cycle (its event is the one sync, one cycle
         late), stamp its walls split into dispatch / effective step /
-        overlapped host time, and fold its results in."""
+        overlapped host time, fold its results in, and land the spill /
+        restore copies in flight."""
         p, self._in_flight = self._in_flight, None
         if p is None:
             return
@@ -884,7 +1351,23 @@ class Scheduler:
             self._harvest_unified(p)
         else:
             self._harvest_wide(p)
+        self._finalize_swaps()
         self._track_residency(cycle=p.clock)
+
+    def _finalize_swaps(self) -> None:
+        """Land the spill / restore copies dispatched since the last
+        harvest, each on its own event (they have overlapped the fused
+        step since, so the wait is short), and stamp their walls:
+        dispatch plus the residual wait."""
+        in_flight, self._swaps_in_flight = self._swaps_in_flight, []
+        for kind, handle, dispatch_dt, cycle in in_flight:
+            t0 = time.perf_counter()
+            if kind == "spill":
+                self.spill.finalize(handle)
+            elif handle is not None:
+                handle.synchronize()
+            self._stamp_wall_at(
+                kind, dispatch_dt + time.perf_counter() - t0, cycle)
 
     def _take_staged_chunk(self, plan: CyclePlan):
         """The fused step's chunk operands: the staged device copies when
@@ -916,7 +1399,7 @@ class Scheduler:
                 continue
             pos = r.pos + (int(plan.prefill_valid[slot])
                            if r in plan.prefilling else 0)
-            v = min(width, len(r.tokens) - pos, budget)
+            v = min(self._chunk_len(r, pos, width), budget)
             if v <= 0:
                 continue
             chunk[slot, :v] = r.tokens[pos:pos + v]
@@ -956,14 +1439,21 @@ class Scheduler:
     # -- invariants --------------------------------------------------------
 
     def check_invariants(self) -> None:
-        """Allocator refcounts and reservations, and host tables inside
-        the pool (the device side reads out-of-range entries as the trash
-        block, so an out-of-range host entry is scheduler corruption)."""
+        """Cross-registry checks: allocator refcounts and reservations,
+        host tables inside the pool (the device side reads out-of-range
+        entries as the trash block, so an out-of-range host entry is
+        scheduler corruption), the prefix trie against the pool, and the
+        spill store against the allocator's swapped keys."""
         if not self.paged:
             return
         self.pool.check_invariants()
         assert self.table.min() >= 0 and self.table.max() < self.num_blocks, \
             "host block table entry outside [0, num_blocks)"
+        if self.prefix is not None:
+            self.prefix.check_invariants()
+        if self.spill is not None:
+            assert set(self.pool.swapped_keys()) == set(self.spill.keys()), \
+                "spill store out of sync with allocator swapped keys"
 
     # -- decode ------------------------------------------------------------
 
@@ -1091,14 +1581,23 @@ class Scheduler:
                 "slo_hit_rate": hits / len(slo) if slo else None}
 
     def summary(self) -> dict:
-        """The run report from the metrics registry: counters, gauges,
-        derived ratios, per-bucket walls beside the cost model, latency
-        and goodput, the step shapes and the tracer's health."""
+        """The run report from the metrics registry: counters, gauges
+        (the prefix cache's and the spill store's among them), derived
+        ratios, per-bucket walls beside the cost model (``cow``,
+        ``spill`` and ``restore`` included), latency and goodput, the step
+        shapes and the tracer's health."""
         m = self.metrics
         if self.paged:
             m.gauge("pool_blocks", self.pool.capacity)
             m.gauge("pool_high_water_blocks", self.pool.high_water)
             m.gauge("block_size", self.block_size)
+        if self.prefix is not None:
+            for k, v in self.prefix.snapshot().items():
+                m.gauge(k, v)
+        if self.swap:
+            m.gauge("swapped_now", self.pool.swapped_total)
+            for k, v in self.spill.snapshot().items():
+                m.gauge(k, v)
         s = m.snapshot()
         if self.finished:
             lat = [r.finished_at - r.arrival for r in self.finished]

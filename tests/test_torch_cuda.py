@@ -1361,3 +1361,166 @@ def test_paged_mla_splits_on_card(card, t, split, lat, rope, bs, monkeypatch,
     acc, m, l = got
     assert (acc[1] == 0).all() and (m[1] == PA.NEG_INF).all() \
         and (l[1] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The prefix cache and preemption with host swap: block moves and runs
+# ---------------------------------------------------------------------------
+
+def _random_pool(card, variant, seed):
+    """A SMOKE paged cache on the card with arbitrary bits in every store
+    leaf (bf16 leaves finite)."""
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.swapstore import tree_map
+    cfg = get_config("llama3-8b", smoke=True)
+    cass = CassandraConfig(variant=variant, gamma=3) if variant else None
+    cache = KC.init_paged_cache(cfg, cass, 2, 12, 4, 5, packed=bool(variant),
+                                device=card)
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def fill(leaf):
+        if leaf.dtype == torch.bfloat16:
+            return torch.randn(leaf.shape, generator=gen, device=card).to(
+                torch.bfloat16)
+        r = torch.randint(0, 256, (leaf.numel() * leaf.element_size(),),
+                          generator=gen, device=card, dtype=torch.uint8)
+        return r.view(leaf.dtype).reshape(leaf.shape)
+    cache["dec"] = tree_map(fill, cache["dec"])
+    return cache
+
+
+def _pool_leaves(cache) -> list:
+    from repro_torch.serving.swapstore import tree_leaves
+    return tree_leaves(cache["dec"])
+
+
+def _bits_equal(a, b) -> bool:
+    w = torch.int16 if a.dtype == torch.bfloat16 else a.dtype
+    return a.shape == b.shape and torch.equal(a.view(w), b.view(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [0, 1, 2])
+def test_pool_block_moves_on_card(card, variant):
+    """Copy-on-write, spill and restore on a bf16 and on packed C-1 / C-2
+    pools on the card, leaf by leaf: copies bit for bit, sources and every
+    other block untouched, block 0 unchanged (a CoW pair into it and a
+    restore's padding store its own value back). The spill lands in pinned
+    host buffers; ``put_async`` then ``finalize`` gives the bytes ``put``
+    gives; the restore from a pinned chain puts them back bit for bit."""
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.swapstore import SpillStore, tree_leaves
+    cache = _random_pool(card, variant, seed=variant + 5)
+    before = [t.clone() for t in _pool_leaves(cache)]
+    src = torch.tensor([2, 5, 7, 0], dtype=torch.int32, device=card)
+    dst = torch.tensor([9, 2, 0, 0], dtype=torch.int32, device=card)
+    KC.copy_pool_blocks(cache, src, dst)
+    torch.cuda.synchronize()
+    for t, b in zip(_pool_leaves(cache), before):
+        assert _bits_equal(t[:, [9, 2]], b[:, [2, 5]])
+        rest = [j for j in range(12) if j not in (9, 2)]
+        assert _bits_equal(t[:, rest], b[:, rest])
+    # spill three blocks (padded to five with the trash block) two ways
+    vec = torch.tensor([4, 9, 1, 0, 0], dtype=torch.int32, device=card)
+    stores = (SpillStore(), SpillStore())
+    chains = []
+    for st, fn in zip(stores, ("put", "put_async")):
+        data = KC.spill_pool_blocks(cache, vec)
+        chains.append(getattr(st, fn)(("swap", 0), data, 3, length=11,
+                                      pos=11, cur=7))
+    assert chains[1].done is not None and stores[1].finalize() == 1
+    assert chains[1].done is None
+    spilled = [t[:, [4, 9, 1]].clone() for t in _pool_leaves(cache)]
+    for c in chains:
+        for h, s in zip(tree_leaves(c.data), spilled):
+            assert h.is_pinned() and not h.is_cuda
+            assert _bits_equal(h, s.cpu())
+    assert chains[0].nbytes == chains[1].nbytes == stores[0].nbytes > 0
+    # overwrite the source blocks, then restore into other blocks
+    for t in _pool_leaves(cache):
+        t[:, [4, 9, 1]] = t[:, [3, 3, 3]]
+    mid = [t.clone() for t in _pool_leaves(cache)]
+    host = chains[1].slice_blocks(0, 3, 5)
+    assert all(h.is_pinned() for h in tree_leaves(host))
+    back = torch.tensor([6, 10, 11, 0, 0], dtype=torch.int32, device=card)
+    _, marker = KC.restore_pool_blocks_marked(cache, back, host)
+    marker.synchronize()
+    for t, m, s in zip(_pool_leaves(cache), mid, spilled):
+        assert _bits_equal(t[:, [6, 10, 11]], s)
+        rest = [j for j in range(12) if j not in (6, 10, 11)]
+        assert _bits_equal(t[:, rest], m[:, rest])
+    for t, b in zip(_pool_leaves(cache), before):
+        assert _bits_equal(t[:, 0], b[:, 0])            # the trash block
+    stores[1].pop(("swap", 0))
+    assert stores[1].blocks == 0 and stores[1].total_restored_blocks == 3
+
+
+@pytest.mark.cuda
+def test_prefix_and_swap_scheduler_on_card(card):
+    """The paged scheduler at SMOKE width (2 layers) on the card with the
+    kernels on: prefix cache on == off for two waves sharing a 6-token
+    header (a copy-on-write per hit), and swap on a pool of 13 blocks ==
+    a pool that never preempts, with the overlap pipeline on and off,
+    bit for bit; launches as the passes imply."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving.scheduler import Scheduler
+    cfg = get_config("llama3-8b", smoke=True)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device=card).manual_seed(1)
+    params = format_params(init_params(cfg, gen, device=card), cass)
+    prompts = torch.randint(0, cfg.vocab_size, (6, 12), generator=gen,
+                            device=card).cpu().numpy()
+    prompts[:, :6] = prompts[0, :6]
+
+    def serve(waves, **kw):
+        sched = Scheduler(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3),
+                          num_slots=3, s_max=24, paged=True, block_size=4,
+                          chunk_size=8, attn_kernel="on",
+                          debug_invariants=1, **kw)
+        before = (PA.paged_gqa.launches, PA.paged_gqa_packed.launches)
+        if waves:
+            reqs = [sched.submit(p, max_new=8) for p in prompts[:3]]
+            sched.run()
+            reqs += [sched.submit(p, max_new=8, arrival=sched.clock)
+                     for p in prompts[3:]]
+        else:
+            reqs = [sched.submit(p, max_new=8, arrival=i / 4.0,
+                                 priority=i % 2)
+                    for i, p in enumerate(prompts[:4])]
+        sched.run()
+        s = sched.summary()
+        drafts = 3 * (s["cycles"] - s["prefill_cycles"] + s["mixed_cycles"])
+        assert PA.paged_gqa.launches - before[0] == s["cycles"] * cfg.n_layers
+        assert PA.paged_gqa_packed.launches - before[1] == \
+            drafts * cfg.n_layers
+        assert all(len(r.output) == 8 for r in reqs)
+        sched.check_invariants()
+        return s, [r.output for r in reqs]
+
+    on, toks_on = serve(True, prefix_cache=True)
+    _, toks_off = serve(True)
+    assert toks_on == toks_off
+    assert on["prefix_hits"] == 3 and on["cow_copies"] == 3
+    ample = serve(False)[1]
+    for kw in ({}, {"overlap": False}, {"prefix_cache": True}):
+        s, toks = serve(False, swap=True, num_blocks=13, **kw)
+        assert toks == ample, kw
+        assert s["preemptions"] >= 1 and s["swap_out_blocks"] >= 1
+        assert s["swap_in_blocks"] + s["swap_matched_blocks"] == \
+            s["swap_out_blocks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v3-671b"])
+def test_prefill_attention_independent_of_chunk_start_on_card(card, arch):
+    """``paged_gqa`` / ``paged_mla`` and the suffix merge give a prompt
+    token the same bits whether its chunk started on the grid or mid-grid
+    (a prefix hit, a resume), with the serving steps' window start; the
+    layer's products run at one shape either way."""
+    import dataclasses
+    cfg = get_config(arch, smoke=True)
+    if cfg.mla:
+        cfg = dataclasses.replace(cfg, n_layers=2, first_dense_layers=2)
+    a, b = AR.chunk_start_outputs(cfg, card, seed=3)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))

@@ -256,10 +256,17 @@ def test_retirement_and_latency(setup, kernel_run):
 
 
 def test_refusals(setup):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _serve(setup, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _serve(setup, swap=True)
+    # the reference's knob validation (tests/test_scheduler.py::
+    # test_swap_knob_validation): swap and the prefix cache need the paged
+    # layout, a store cap needs swap and must hold one full row chain
+    with pytest.raises(ValueError, match="paged"):
+        _serve(setup, paged=False, swap=True)
+    with pytest.raises(ValueError, match="swap_store_blocks"):
+        _serve(setup, paged=False, swap_store_blocks=4)
+    with pytest.raises(ValueError, match="one full row chain"):
+        _serve(setup, swap=True, swap_store_blocks=1)
+    with pytest.raises(ValueError, match="paged"):
+        _serve(setup, paged=False, prefix_cache=True)
     with pytest.raises(ValueError, match="attn_kernel"):
         _serve(setup, attn_kernel="jnp")
     with pytest.raises(ValueError, match="paged"):

@@ -82,3 +82,57 @@ def tau_prefix(spec_tokens: np.ndarray, ar_tokens: np.ndarray,
                                       err_msg=f"row {row}")
         compared += stop
     return compared, ar_tokens.shape[0] * n - compared
+
+
+def chunk_start_outputs(cfg, device, seed: int = 0, windowed: bool = True):
+    """One paged attention layer (the kernels' path: ``paged_gqa`` or
+    ``paged_mla`` and the suffix merge) run on the same prompt tokens
+    under two chunk partitions, the second starting mid-grid as a prefix
+    hit or a resume does: pass A takes positions 32..47 in one 16-wide
+    chunk from a pool holding 0..31; pass B takes 40..47 from the pool
+    holding 0..39, its 32..39 the K/V (latents) pass A computed. Returns
+    (A's outputs at 40..47, B's outputs at 40..47); ``windowed`` passes
+    ``engine.window_start`` as the serving steps do."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import _index, init_params
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = _index(init_params(cfg, gen, device=device)["dec"][0]["e0"]["attn"],
+               0)
+    rt = Runtime(cfg=cfg, cass=None, view="plain", attn_kernel="on")
+    b, t, bs, mb = 2, 16, 4, 12
+    nb = b * mb + 1
+    table = (1 + torch.arange(b * mb, device=device)).reshape(b, mb).to(
+        torch.int32)
+    x = torch.randn((b, 48, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    dims = E.KC.store_dims(cfg)
+    heads = E.KC.store_heads(cfg)
+    pools = {nm: (torch.randn((nb, bs, *heads, d), generator=gen,
+                              device=device) * 0.5).to(torch.bfloat16)
+             for nm, d in dims.items()}
+
+    def layer(lo: int, valid: int):
+        length = torch.full((b,), lo, dtype=torch.int32, device=device)
+        xs = torch.zeros((b, t, cfg.d_model), dtype=torch.bfloat16,
+                         device=device)
+        xs[:, :valid] = x[:, lo:lo + valid]
+        pos = length[:, None] + torch.arange(t, device=device)
+        start = (E.window_start(length, torch.full_like(length, valid), t)
+                 if windowed else None)
+        kw = dict(table=table, length=length, scratch=None, scratch_len=0,
+                  suffix_from=start)
+        if cfg.mla:
+            return A.mla_attention_paged(rt, p, xs, pos, c_pool=pools["c"],
+                                         kr_pool=pools["kr"], **kw)
+        return A.gqa_attention_paged(
+            rt, p, xs, pos, kv_pools=("plain", pools["k"], pools["v"]), **kw)
+
+    with torch.inference_mode():
+        out_a, new_a = layer(32, 16)
+        for (nm, pool), new in zip(pools.items(), new_a):
+            for row in range(b):              # commit 32..39 as pass A did
+                blocks = table[row, 8:10].to(torch.int64)
+                pool[blocks] = new[row, :8].reshape(2, bs, *new.shape[2:])
+        out_b, _ = layer(40, 8)
+    return out_a[:, 8:16], out_b[:, :8]
