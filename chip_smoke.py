@@ -117,13 +117,34 @@ these phases; any failure exits non-zero:
               quarter cycle apart at priorities 0 and 1, on a 24-block
               pool (preemptions, blocks spilled and restored) and on an
               ample one: tokens bit for bit, every request its tokens;
-15. report  — ``kernels: [...]``, one JSON line per the kernels table,
+15. sampling — phase 3's model again (Llama-3-8B, C-1, γ=3, ``--seed``)
+              on phase 6's prompts: (d) Wanda calibration, a
+              ``Calibrator`` over the prompts through ``forward_train``,
+              every packed weight's path with a norm, layer 0's ``wk``
+              formatted bit for bit on the card and the CPU, the
+              calibrated model lossless as in phase 6 (≥ 90% under the
+              near-tie rule), its acceptance beside phase 6's; (a)
+              ``Engine.generate`` sampled at T = 1.0 twice from one seed,
+              bit for bit, every row its tokens, launches by phase 6's
+              rule, acceptance beside phase 6's; (e) that run's telemetry:
+              counters equal to the stats, one ``CYCLE`` event per active
+              row and cycle, tokens equal with telemetry off; (b) the Eq. 1
+              distribution gate: 512 copies of prompt 0 through one
+              speculative cycle at the largest T whose 8 likeliest tokens
+              hold half the mass (chosen before any draw), the first
+              position's frequencies in those 8 bins and the rest within 5
+              standard errors of the target's p; (c) the sampled paged
+              ``Scheduler`` (kernels on) twice from one seed at full width
+              and overlap on == off at 2 layers, bit for bit, C-2 at 2
+              layers and phase 11's DeepSeek-V3 repeatable, launches as
+              the passes imply;
+16. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 4c, 7-15 (4b and 4c read phase 6's
-prompts). Phases 6, 7, 9, 10, 12, 13 and each run of 14 set every
-kernel's launch count to 0 before their run and check it after against
-what the passes imply
+Phases run in the order 1-6, 4b, 4c, 7-16 (4b and 4c read phase 6's
+prompts). Phases 6, 7, 9, 10, 12, 13, each run of 14 and the first of
+each pair in 15 set every kernel's launch count to 0 before their run
+and check it after against what the passes imply
 (the C-1 runs also count ``kv_encode``, one per KV store per commit,
 ``kv_view``, one per KV store view, and ``unary_decode``, MLA's kv_b
 draft view; the C-2 runs ``kv_topk``, the KV encode's selection, and
@@ -782,7 +803,7 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     say(f"[main] max_memory_allocated during the spec run "
         f"{peak / 2**30:.2f} GiB")
     return {"launches": launches, "codec": codec, "prompt": prompt["tokens"],
-            "lg": lg_cpu, "wide": wide}
+            "lg": lg_cpu, "wide": wide, "acceptance": st_sp["acceptance"]}
 
 # ---------------------------------------------------------------------------
 # Phase 4b: the paged-attention kernels against their plain versions
@@ -1049,11 +1070,12 @@ def paged_cycle_ms(packed, cfg, cass, prompt, n_new: int) -> tuple:
 # Phases 7 and 8: the paged continuous-batching scheduler
 # ---------------------------------------------------------------------------
 
-def serve_paged(cfg, params, cass, prompt, n: int, speculative=True, **kw):
+def serve_paged(cfg, params, cass, prompt, n: int, speculative=True,
+                ecfg=None, **kw):
     """Every request at arrival 0 through a paged ``Scheduler`` with one
-    slot per request (so every admission takes the wide bucket). Returns
-    (scheduler, tokens (B,n), each request's first-token logits (B,V),
-    wall seconds)."""
+    slot per request (so every admission takes the wide bucket); ``ecfg``
+    defaults to greedy at the format's γ. Returns (scheduler, tokens
+    (B,n), each request's first-token logits (B,V), wall seconds)."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import EngineConfig
@@ -1061,7 +1083,7 @@ def serve_paged(cfg, params, cass, prompt, n: int, speculative=True, **kw):
     b, s = prompt.shape
     gamma = cass.gamma if cass is not None else 3
     sched = Scheduler(cfg, params, cass=cass,
-                      ecfg=EngineConfig(gamma=gamma), num_slots=b,
+                      ecfg=ecfg or EngineConfig(gamma=gamma), num_slots=b,
                       s_max=s + n + gamma + 1, speculative=speculative,
                       paged=True, block_size=BLOCK, chunk_size=CHUNK,
                       device="cuda", **kw)
@@ -2833,6 +2855,515 @@ def prefix_swap_phase(args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: rejection sampling (paper Eq. 1), Wanda calibration, telemetry
+# ---------------------------------------------------------------------------
+
+DIST_ROWS = 8192                   # copies of one prompt in the Eq. 1 gate
+DIST_CHUNK = 512                   # of them in one cycle
+DIST_SE = 5.0                      # its bound: 5 standard errors a bin
+DIST_TOP = 8                       # bins: the 8 likeliest tokens and the rest
+DIST_TEMPS = (1.0, 0.8, 0.6, 0.5, 0.4, 0.3, 0.25, 0.2, 0.15, 0.1, 0.07,
+              0.05, 0.03, 0.02, 0.01)
+
+
+def _leaf_at(tree, path: str):
+    """The node at a ``format_params`` path (``dec[0].e0.attn.wq``)."""
+    for part in path.replace("[", ".").replace("]", "").split("."):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def _flat_bits(tree) -> list:
+    """(path, raw int tensor) of every tensor leaf: bf16 as int16."""
+    import torch
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}.{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(node, torch.Tensor):
+            out.append((path, node.view(torch.int16)
+                        if node.dtype == torch.bfloat16 else node))
+    walk(tree, "")
+    return out
+
+
+def _cycle_events_ok(events, st: dict, b: int, n: int, gamma: int) -> bool:
+    """One CYCLE event per active row and cycle: each row's events carry
+    the cycles 1..k in order, its committed tokens (the prefill token plus
+    the events' n+1) reach ``n`` at its last event and not before, and
+    every event proposes γ."""
+    from repro_torch.serving.telemetry import CYCLE
+    rows: dict = {}
+    for ev in events:
+        _, cycle, kind, rid, slot, evargs = ev
+        if kind != CYCLE or rid != slot or evargs[0] != gamma \
+                or evargs[2] != evargs[1] + 1:
+            return False
+        rows.setdefault(rid, []).append((cycle, evargs[2]))
+    if sorted(rows) != list(range(b)):
+        return False
+    for evs in rows.values():
+        if [c for c, _ in evs] != [float(i + 1) for i in range(len(evs))]:
+            return False
+        done = 1 + sum(d for _, d in evs)
+        if done < n or done - evs[-1][1] >= n:
+            return False
+    return max(len(v) for v in rows.values()) == st["cycles"]
+
+
+def sample_engine(cfg, packed, cass, prompt, args, main: dict) -> dict:
+    """15a/15e: ``Engine.generate`` sampled at temperature 1.0, twice from
+    one seed (telemetry on, then off): tokens bit for bit, every row its
+    tokens, launches as phase 6's rule for the passes, the telemetry
+    counters equal to the stats and one CYCLE event per active row and
+    cycle."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.telemetry import Telemetry
+
+    b, n, gamma = args.requests, args.max_new, cass.gamma
+    eng = Engine(cfg, packed, cass=cass, device="cuda",
+                 ecfg=EngineConfig(gamma=gamma, greedy=False,
+                                   temperature=1.0))
+    runs = []
+    for telemetry in (Telemetry(trace=True), None):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, st = eng.generate(
+            {"tokens": prompt}, max_new=n, telemetry=telemetry,
+            generator=torch.Generator(device="cuda").manual_seed(
+                args.seed + 20))
+        torch.cuda.synchronize()
+        runs.append((toks.cpu().numpy(), st, time.perf_counter() - t0,
+                     DM.draft_matmul.launches, codec_launches(), telemetry))
+    (tok, st, wall, dm, codec, tel), (tok2, st2, wall2, *_) = runs
+    same = np.array_equal(tok, tok2)
+    say(f"[sample] Engine, T=1.0, seed {args.seed + 20} twice (telemetry on, "
+        f"off): bit for bit {same}; {wall:.1f} s, {wall2:.1f} s")
+    if not same or st != st2:
+        fail("sample: two sampled Engine runs from one seed differ")
+    counts = (tok >= 0).sum(1)
+    if tok.shape != (b, n + gamma + 1) or (counts < n).any() \
+            or not (tok[tok >= 0] < cfg.vocab_size).all():
+        fail(f"sample: sampled tokens {tok.shape}, per row {counts}")
+    per_pass = 7 * cfg.n_layers + 1
+    cyc, mats = st["cycles"], packed_matrices(packed)
+    expect = st["draft_passes"] * per_pass
+    say(f"[sample] draft_matmul launches {dm} = draft passes "
+        f"{st['draft_passes']} x {per_pass}: {dm == expect}")
+    if dm != expect or dm == 0:
+        fail(f"sample: draft_matmul launched {dm} times, expected {expect}")
+    check_launches("sample", codec, {
+        "mx_decode": 0, "mx_view": 0, "kv_topk": 0,
+        "kv_encode": 2 * (1 + cyc),
+        "kv_view": 2 * cfg.n_layers * cyc + 2 * cyc, "unary_decode": 0,
+        "target_decode": mats * (1 + cyc)})
+    say(f"[sample] spec, T=1.0: cycles {cyc}, acceptance "
+        f"{st['acceptance']:.3f} (phase 6 greedy {main['acceptance']:.3f}), "
+        f"tokens/cycle {st['tokens_per_cycle']:.3f}, {b * n / wall:.2f} tok/s")
+    # Engine telemetry (15e)
+    snap = tel.metrics.snapshot()
+    events = tel.tracer.events()
+    counters = {k: snap[k] for k in ("cycles", "accepted", "drafted",
+                                     "committed")}
+    drafted = gamma * len(events)
+    want = {"cycles": cyc,
+            "accepted": round(st["acceptance"] * drafted),
+            "drafted": drafted, "committed": int(counts.sum()) - b}
+    hist = snap["histograms"]["acceptance_len"]
+    ok = (counters == want and hist["n"] == len(events)
+          and sum(ev[5][1] for ev in events) == counters["accepted"]
+          and _cycle_events_ok(events, st, b, n, gamma))
+    say(f"[telemetry] Engine counters {counters}; from the stats {want}; "
+        f"{len(events)} CYCLE events, one per active row and cycle: {ok}; "
+        f"tokens telemetry on == off: {same}")
+    if not ok:
+        fail(f"telemetry: counters {counters} / events disagree with the "
+             f"stats {want}")
+    # the sampler's own cost in one cycle at this batch (eager, CUDA
+    # events): Eq. 1 acceptance (two f32 softmaxes + rejection_sample)
+    # against the greedy rule, and one draft token's draw
+    from repro_torch.serving.engine import _accept, _draw
+    v = cfg.vocab_size
+    lg = torch.randn((b, gamma + 1, v), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+    drafts = [lg[:, i] * 0.9 for i in range(gamma)]
+    dtok = torch.argmax(torch.stack(drafts, 1), -1).to(torch.int32)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    t_eq1 = cuda_ms(lambda: _accept(dtok, drafts, lg, eng.ecfg, g), 20)
+    t_greedy = cuda_ms(lambda: _accept(
+        dtok, drafts, lg, EngineConfig(gamma=gamma), None), 20)
+    t_draw = cuda_ms(lambda: _draw(lg[:, 0], False, 1.0, g), 20)
+    say(f"[sample] sampler at B={b}, γ={gamma}, V={v} (eager, CUDA events): "
+        f"Eq. 1 acceptance {t_eq1 * 1e3:.1f} us, greedy acceptance "
+        f"{t_greedy * 1e3:.1f} us, one draft draw {t_draw * 1e3:.1f} us; a "
+        f"sampled cycle {wall / cyc * 1e3:.1f} ms (host clock)")
+    return {"acceptance": st["acceptance"], "tokens": tok,
+            "eq1_us": t_eq1 * 1e3}
+
+
+def _gate_stat(first, ids, p_bins, rows: int):
+    """The Eq. 1 gate's comparison: the frequencies of the ``DIST_TOP``
+    bins ``ids`` and the rest in ``first`` against ``p_bins``. Returns
+    (freq, max |freq - p| / SE, every bin within ``DIST_SE`` SE)."""
+    import numpy as np
+    freq = np.array([(first == i).mean() for i in ids]
+                    + [(~np.isin(first, ids)).mean()])
+    se = np.sqrt(p_bins * (1 - p_bins) / rows)
+    dev = np.abs(freq - p_bins)
+    return freq, float((dev / se).max()), bool((dev <= DIST_SE * se).all())
+
+
+def distribution_gate(cfg, packed, cass, prompt0, gen_seed: int) -> dict:
+    """15b: the exact guarantee of Eq. 1 at the first drafted position.
+    ``DIST_ROWS`` copies of one prompt, one speculative cycle each, run
+    ``DIST_CHUNK`` rows at a time from one prefilled cache; the
+    frequencies of ``tokens[:, 0]`` against the target probabilities p of
+    that position (every row has the same prefix: p from row 0 of the
+    target logits / T at the verify width). T is the largest of
+    ``DIST_TEMPS`` whose ``DIST_TOP`` likeliest tokens hold at least half
+    of the mass, chosen before any draw. Bound fixed beforehand: each bin
+    and the rest within ``DIST_SE`` standard errors sqrt(p(1-p)/N).
+
+    The same comparison must reject two planted faults on the same drafts
+    (each with draws of its own, so the real run's stream is untouched): a
+    residual of p in place of max(p - q, 0), and every draft accepted
+    (the output then follows q). Their expected statistics, from p and
+    the draft's q at that position, are printed beside what they read."""
+    import numpy as np
+    import torch
+    from repro_torch.core import speculative as SP
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import EngineConfig, spec_decode_step
+
+    gamma, rows, chunk = cass.gamma, DIST_ROWS, DIST_CHUNK
+    tokens = prompt0[None].expand(chunk, -1).contiguous()
+    rt = Runtime(cfg=cfg, cass=cass, view="target")
+    cache = KC.init_cache(cfg, cass, chunk, tokens.shape[1] + gamma + 2,
+                          packed=True, device="cuda")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg, cache = M.forward_prefill(rt, packed, {"tokens": tokens}, cache)
+        cur = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+        # position 0 of the verify pass sees cur alone (causal): its
+        # logits do not depend on the drafts that follow
+        l0, _ = M.forward_decode(rt, packed, cur.expand(-1, gamma + 1),
+                                 cache)
+        l0 = l0[0, 0].to(torch.float32)
+        temp = None
+        for t in DIST_TEMPS:
+            p = torch.softmax(l0 / t, -1)
+            if p.topk(DIST_TOP).values.sum().item() >= 0.5:
+                temp = t
+                break
+        if temp is None:
+            fail("dist: no temperature puts half the mass on 8 tokens")
+        top = p.topk(DIST_TOP)
+        p_bins = np.append(top.values.cpu().numpy().astype(np.float64),
+                           1.0 - top.values.sum().item())
+        bound = DIST_SE * np.sqrt(p_bins * (1 - p_bins) / rows)
+        say(f"[dist] {rows} copies of one {tokens.shape[1]}-token prompt "
+            f"({rows // chunk} cycles of {chunk} rows), T = {temp} (the "
+            f"largest of {list(DIST_TEMPS)} whose top {DIST_TOP} hold >= 0.5"
+            f" of the mass: {p_bins[:-1].sum():.4f}); bound fixed before the "
+            f"draws: |freq - p| <= {DIST_SE} x sqrt(p(1-p)/N) per bin")
+        ecfg = EngineConfig(gamma=gamma, greedy=False, temperature=temp)
+        gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+        fault_gen = torch.Generator(device="cuda").manual_seed(gen_seed + 1)
+        real = SP.rejection_sample
+        firsts = {"Eq. 1": [], "residual p": [], "accept all": []}
+        seen = {}
+
+        def planted(draft_tokens, draft_probs, target_probs, generator,
+                    r=None):
+            res = real(draft_tokens, draft_probs, target_probs, generator, r)
+            seen.setdefault("q", draft_probs[0, 0].clone())
+            # every row's p at that position, as its verify pass gives it
+            seen["p_gap"] = torch.maximum(
+                seen.get("p_gap", torch.zeros((), device="cuda")),
+                (target_probs[:, 0] - p).abs().amax())
+            n = real(draft_tokens, draft_probs, target_probs,
+                     fault_gen).n_accepted
+            redraw = SP.categorical(torch.log(target_probs[:, 0]), fault_gen)
+            firsts["residual p"].append(
+                torch.where(n > 0, draft_tokens[:, 0], redraw))
+            firsts["accept all"].append(draft_tokens[:, 0])
+            return res
+
+        length0 = cache["length"]
+        n_acc = 0
+        SP.rejection_sample = planted
+        try:
+            for _ in range(rows // chunk):
+                # commit writes past length0 and sets a new length: the
+                # next cycle starts from the same prefix
+                res, _ = spec_decode_step(rt, packed,
+                                          dict(cache, length=length0), cur,
+                                          ecfg, gen)
+                firsts["Eq. 1"].append(res.tokens[:, 0])
+                n_acc += int((res.n_accepted > 0).sum())
+        finally:
+            SP.rejection_sample = real
+        firsts = {k: torch.cat(v).cpu().numpy() for k, v in firsts.items()}
+        q = seen["q"].double().cpu().numpy()
+        p_gap = seen["p_gap"].item()
+        pf = p.double().cpu().numpy()
+    del cache
+    ids = top.indices.cpu().numpy()
+    se = np.sqrt(p_bins * (1 - p_bins) / rows)
+    alpha = float(np.minimum(pf, q).sum())
+    expect = {"Eq. 1": pf, "residual p": np.minimum(pf, q)
+              + (1 - alpha) * pf, "accept all": q}
+    stats = {}
+    for name, first in firsts.items():
+        f = expect[name]
+        f_bins = np.append(f[ids], 1.0 - f[ids].sum())
+        pred = float((np.abs(f_bins - p_bins) / se).max())
+        freq, stat, ok = _gate_stat(first, ids, p_bins, rows)
+        stats[name] = (stat, ok)
+        say(f"[dist] {name}: freq {np.round(freq, 4).tolist()}; statistic "
+            f"max |freq - p| / SE = {stat:.3f} (expected {pred:.3f}, bound "
+            f"{DIST_SE}); within the bound: {ok}")
+    say(f"[dist] p (8 bins + rest) {np.round(p_bins, 4).tolist()}; bound "
+        f"{np.round(bound, 4).tolist()}; the draft's acceptance at the first"
+        f" position sum(min(p, q)) = {alpha:.4f}, first drafts accepted in "
+        f"{n_acc} of {rows} rows; every verify pass's p at that position "
+        f"within {p_gap:.3g} of p; {time.perf_counter() - t0:.1f} s")
+    if not stats["Eq. 1"][1]:
+        fail(f"dist: first-position frequencies outside {bound} of p "
+             f"{p_bins}")
+    for name in ("residual p", "accept all"):
+        if stats[name][1]:
+            fail(f"dist: the gate passes the planted fault '{name}' "
+                 f"(statistic {stats[name][0]:.3f})")
+    return {"temperature": temp, "stat": stats["Eq. 1"][0],
+            "faults": {k: v[0] for k, v in stats.items() if k != "Eq. 1"}}
+
+
+def sample_sched(tag: str, kind: str, cfg, params, cass, prompt, args,
+                 seed: int, runs=(("a", {}), ("b", {})), **kw) -> None:
+    """Sampled requests (T=1.0) through the paged ``Scheduler`` (one slot
+    per request), each run from a generator seeded with ``seed``: every
+    run's tokens bit for bit the first's; the first's launches as its
+    passes imply."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import EngineConfig
+    ecfg = EngineConfig(gamma=cass.gamma, greedy=False, temperature=1.0)
+    first = None
+    for name, extra in runs:
+        reset_launches()
+        sched, tokens, _, wall = serve_paged(
+            cfg, params, cass, prompt, args.max_new, ecfg=ecfg,
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+            **kw, **extra)
+        st = sched.summary()
+        if first is None:
+            first = tokens
+            got, want = all_launches(), pass_launches(kind, st, cfg, cass,
+                                                      params)
+            say(f"[{tag}] {name}: {tokens.shape[0]} x {args.max_new} tokens, "
+                f"acceptance {st['acceptance']:.3f}, cycles {st['cycles']}, "
+                f"{wall:.1f} s; launches as the passes imply {got == want}")
+            if got != want:
+                fail(f"{tag}: launches {got} != {want}")
+        else:
+            same = np.array_equal(tokens, first)
+            say(f"[{tag}] {name} == {runs[0][0]}, seed {seed}, bit for bit: "
+                f"{same} ({wall:.1f} s)")
+            if not same:
+                fail(f"{tag}: sampled tokens of {name} differ")
+        del sched
+
+
+def calibration_phase(cfg, plain, packed, cass, prompt, args,
+                      main: dict) -> None:
+    """15d: a ``Calibrator`` over the prompts through ``forward_train`` on
+    the card, ``format_params(calib=...)``; every packed weight's path has
+    a norm; one layer's calibrated ``format_weight`` bit for bit against
+    the CPU's; the calibrated model passes phase 6's losslessness gate."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.format import format_weight
+    from repro_torch.core.packing import (Calibrator, format_params,
+                                          packed_paths)
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import Engine, EngineConfig, top2_margin
+
+    b, s, n, gamma = args.requests, args.prompt_len, args.max_new, cass.gamma
+    calib = Calibrator()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = M.forward_train(Runtime(cfg=cfg, collector=calib), plain,
+                                    {"tokens": prompt})
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    if logits.shape != (b, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        fail(f"calib: forward_train logits {tuple(logits.shape)}")
+    del logits
+    paths = packed_paths(packed)
+    missing = []
+    for path in paths:
+        norm = calib.act_norm(path)
+        w = _leaf_at(plain, path)["w"]
+        if norm is None or tuple(norm.shape) != tuple(w.shape[:-1]) \
+                or not torch.isfinite(norm).all():
+            missing.append(path)
+    say(f"[calib] forward_train over {tuple(prompt.shape)} tokens "
+        f"{t_fwd:.2f} s; {len(paths)} packed weight paths, every one with a "
+        f"norm of its input width (one row per layer): {not missing}")
+    if missing:
+        fail(f"calib: no norm for {missing}")
+    t0 = time.perf_counter()
+    calibrated = format_params(plain, cass, calib=calib)
+    torch.cuda.synchronize()
+    t_fmt = time.perf_counter() - t0
+    changed = sum(not torch.equal(_leaf_at(calibrated, p)["w"]["spec"]
+                                  ["bitmap"],
+                                  _leaf_at(packed, p)["w"]["spec"]["bitmap"])
+                  for p in paths)
+    say(f"[calib] format_params(calib=...) {t_fmt:.1f} s; bitmaps that Wanda "
+        f"changed against |W|: {changed} of {len(paths)} paths; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB (bf16 weights and both formats)")
+    # one layer's calibrated format_weight, card against CPU
+    w = plain["dec"][0]["e0"]["attn"]["wk"]["w"][0]
+    norm = calib.act_norm("dec[0].e0.attn.wk")[0]
+    t0 = time.perf_counter()
+    card = format_weight(w, norm, cass)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu = format_weight(w.cpu(), norm.cpu(), cass)
+    a, c = _flat_bits(card), _flat_bits(cpu)
+    diff = [pa for (pa, x), (_, y) in zip(a, c)
+            if not torch.equal(x.cpu(), y)]
+    layer0 = {k: v[0] for k, v in _leaf_at(
+        calibrated, "dec[0].e0.attn.wk")["w"]["spec"].items()}
+    same_fp = all(torch.equal(card[0][k], layer0[k]) for k in card[0])
+    say(f"[calib] format_weight of layer 0's wk {tuple(w.shape)} with its "
+        f"norms, card ({t_card * 1e3:.0f} ms) vs CPU: {len(a)} leaves bit "
+        f"for bit {not diff and len(a) == len(c)}; == format_params' layer "
+        f"0 spec: {same_fp}")
+    if diff or len(a) != len(c) or not same_fp:
+        fail(f"calib: format_weight differs between card and CPU at {diff}")
+    del card, cpu
+    # phase 6's losslessness gate on the calibrated model
+    eng = Engine(cfg, calibrated, cass=cass, ecfg=EngineConfig(gamma=gamma),
+                 device="cuda")
+    rt_t = dataclasses.replace(eng.rt, view="target")
+    cache = KC.init_cache(cfg, cass, b, s + n + gamma + 1, packed=True,
+                          device="cuda")
+    with torch.inference_mode():
+        lg, cache = M.forward_prefill(rt_t, calibrated, {"tokens": prompt},
+                                      cache)
+        lg = lg[:, -1]
+        toks, logits = ar_steps(rt_t, calibrated, cache, lg, n, gamma + 1)
+        l_v, _ = M.forward_decode(rt_t, calibrated, toks[:, :gamma + 1],
+                                  cache)
+    gap = (logits[:, 1:gamma + 2] - l_v).abs().max().item()
+    wide = (toks.cpu().numpy(), top2_margin(logits).cpu().numpy())
+    del cache, logits, l_v, toks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp, st = eng.generate({"tokens": prompt}, max_new=n)
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t0
+    tau = 2.0 * gap
+    compared, cut = tau_check(sp.cpu().numpy(), wide[0], wide[1], tau, n,
+                              what="calib")
+    share = compared / (b * n)
+    say(f"[calib] lossless: spec == AR at the verify width {gamma + 1} on "
+        f"{compared} of {b * n} positions ({share:.1%}); tau = 2 x its max "
+        f"abs diff = {tau:.3g} cut {cut}")
+    if share < 0.9:
+        fail(f"calib: only {share:.1%} of positions compared under tau")
+    say(f"[calib] greedy spec, calibrated: acceptance {st['acceptance']:.3f} "
+        f"(magnitude-pruned, phase 6: {main['acceptance']:.3f}; random "
+        f"weights: no claim), cycles {st['cycles']}, {b * n / sp_s:.2f} tok/s "
+        f"({sp_s:.1f} s)")
+
+
+def sampling_phase(args, main: dict, mla: dict) -> None:
+    """Phase 15 at full Llama-3-8B width (C-1, γ=3, phase 3's weights from
+    ``--seed``): calibration, the sampled Engine with its telemetry, the
+    Eq. 1 distribution gate, the sampled paged Scheduler at full width and
+    at 2 layers (overlap on == off), C-2 at 2 layers and DeepSeek-V3's
+    dense layers sampled through the Scheduler."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params
+    from repro_torch.models.model import init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3-8b")
+    if args.layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cass = CassandraConfig(variant=1, gamma=3)
+    prompt = main["prompt"]
+    t0 = time.perf_counter()
+    plain = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        args.seed), device="cuda")
+    packed = format_params(plain, cass)
+    torch.cuda.synchronize()
+    say(f"[sample] phase 3's model again ({cfg.n_layers} layers, C-1, seed "
+        f"{args.seed}): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    calibration_phase(cfg, plain, packed, cass, prompt, args, main)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = sample_engine(cfg, packed, cass, prompt, args, main)
+    dist = distribution_gate(cfg, packed, cass, prompt[0], args.seed + 21)
+    sample_sched("sample-sched", "c1", cfg, packed, cass, prompt, args,
+                 args.seed + 22, attn_kernel="on")
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 2 layers, full width: overlap on == off under sampling (phase 8's gate)
+    cfg2 = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 23)
+    packed2 = format_params(init_params(cfg2, gen, device="cuda"), cass)
+    sample_sched("sample-depth2", "c1", cfg2, packed2, cass, prompt, args,
+                 args.seed + 24, runs=(("overlap on", {}),
+                                       ("overlap off", {"overlap": False})),
+                 attn_kernel="on")
+    del packed2
+    # C-2 at 2 layers (attention kernel off) and the MLA dense layers
+    c2 = CassandraConfig(variant=2, gamma=3)
+    packed2 = format_params(init_params(cfg2, gen, device="cuda"), c2)
+    sample_sched("sample-c2", "c2", cfg2, packed2, c2, prompt, args,
+                 args.seed + 25)
+    del packed2
+    gc.collect()
+    torch.cuda.empty_cache()
+    sample_sched("sample-mla", "mla", mla["cfg"], mla["packed"], mla["cass"],
+                 mla["prompt"], args, args.seed + 26, attn_kernel="on")
+    faults = ", ".join(f"{k} {v:.3f}" for k, v in dist["faults"].items())
+    say(f"[sample] phase 15 in {time.perf_counter() - t_phase:.1f} s "
+        f"(sampled acceptance {eng['acceptance']:.3f}, Eq. 1 gate at T = "
+        f"{dist['temperature']}, statistic {dist['stat']:.3f}; planted "
+        f"faults {faults})")
+
+# ---------------------------------------------------------------------------
 
 def run(args) -> None:
     import torch
@@ -2957,13 +3488,18 @@ def run(args) -> None:
     ps = {"mla": prefix_swap_runs(
         "mla-prefix-swap", "mla", mla["cfg"], mla["packed"], mla["cass"],
         torch.Generator(device="cuda").manual_seed(args.seed + 8), args)}
-    del mla
     gc.collect()
     torch.cuda.empty_cache()
     ps.update(prefix_swap_phase(args))
     say(f"[prefix-swap] phase 14 in {time.perf_counter() - t0:.1f} s")
+    # 15. rejection sampling, calibration and Engine telemetry: phase 3's
+    # model, phase 6's prompts, and phase 11's MLA model
+    sampling_phase(args, main, mla)
+    del mla
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 15. report
+    # 16. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
         '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
         '"target_decode", "mx_view", "kv_encode", "kv_view"]')

@@ -309,19 +309,23 @@ def slice_rows(tree: dict, lo: int, hi: int) -> dict:
             for k, v in tree.items()}
 
 
-def format_weight(w: torch.Tensor, act_norm, cfg: CassandraConfig):
-    """Format a (in, out) weight. Blocks along `in` per output column."""
-    if act_norm is not None:
-        raise NotImplementedError(
-            "Wanda calibration is not ported yet: ROADMAP Queue 1 "
-            "(Calibrator / --calibrate)")
+def weight_parts(w: torch.Tensor, act_norm, cfg: CassandraConfig):
+    """The untrimmed (spec, verif) of a (in, out) weight, blocked along
+    `in` per output column; scored by Wanda with ``act_norm``, else |W|."""
     block = cfg.weight_block(w.shape[0])
     keep = cfg.weight_keep(block)
     wt = w.T.contiguous()
-    scores = wt.to(torch.float32).abs()
-    spec, verif = format_tensor(wt, scores, cfg, block, keep, cfg.mx_group,
-                                cfg.weight_trunc)
-    return _trim_lossless(spec, verif, cfg.variant)
+    if act_norm is None:
+        scores = wt.to(torch.float32).abs()
+    else:
+        scores = pruning.wanda_scores(w, act_norm).T.contiguous()
+    return format_tensor(wt, scores, cfg, block, keep, cfg.mx_group,
+                         cfg.weight_trunc)
+
+
+def format_weight(w: torch.Tensor, act_norm, cfg: CassandraConfig):
+    """Format a (in, out) weight. Blocks along `in` per output column."""
+    return _trim_lossless(*weight_parts(w, act_norm, cfg), cfg.variant)
 
 
 def _by_rows(decode, trees: tuple, shape: tuple[int, int]) -> torch.Tensor:

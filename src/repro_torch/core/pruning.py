@@ -3,8 +3,9 @@
 Weights keep a fixed count per 512-value superblock (rounded to a multiple
 of 32), KV vectors per head_dim (multiple of 16). Ties at the threshold go
 to the earlier position, and kept values stay in position order so that
-de-sparsification is a prefix-sum scatter. Wanda scores (calibration)
-join with ``Calibrator`` in a later slice (ROADMAP Queue 1).
+de-sparsification is a prefix-sum scatter. Weights are scored by Wanda
+(|W| times the input channel's calibration activation norm, fed by
+``packing.Calibrator``) or, without calibration, by |W|.
 """
 from __future__ import annotations
 
@@ -21,6 +22,17 @@ def keep_count(block: int, prune_ratio: float, multiple: int) -> int:
     """Static keep count for a block: round((1-p)*block) to a multiple."""
     k = int(round(block * (1.0 - prune_ratio) / multiple)) * multiple
     return max(multiple, min(block, k))
+
+
+def wanda_scores(w: torch.Tensor, act_norm: torch.Tensor) -> torch.Tensor:
+    """Wanda importance: |W[i,j]| * ||act_i||_2, w is (in, out); f32."""
+    return (w.to(torch.float32).abs()
+            * act_norm.to(torch.float32)[:, None])
+
+
+def calibration_act_norm(acts: torch.Tensor) -> torch.Tensor:
+    """Per-input-channel L2 norm over a calibration batch (tokens, in); f32."""
+    return torch.sqrt(acts.to(torch.float32).square().sum(0))
 
 
 def select_topk_blocked(values: torch.Tensor, scores: torch.Tensor,

@@ -20,7 +20,14 @@ blocks across requests (``--shared-header`` gives every request the first
 request's first half, so the cache has something to hit, and the same
 trace runs with the cache off too: the tokens must agree) and ``--swap``
 lets the queue head preempt a resident row to host memory; the ``[prefix]``
-and ``[swap]`` lines report them:
+and ``[swap]`` lines report them.
+
+``--calibrate`` runs a Wanda calibration forward over the prompts
+(``forward_train`` with a ``Calibrator``) before formatting. ``--greedy`` is
+the reference's flag and, as there, cannot be turned off: sampled decoding
+(``EngineConfig(greedy=False)``) runs through the Python API. The Engine
+path draws from a generator seeded from ``--seed`` and writes
+``--trace-out`` / ``--metrics-out`` from the telemetry it collects:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --smoke --device cpu --scheduler --paged --prefix-cache \
@@ -36,9 +43,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.format import CassandraConfig
-from repro_torch.core.packing import format_params, params_nbytes
+from repro_torch.core.packing import Calibrator, format_params, params_nbytes
 from repro_torch.core.speculative import speedup_model
-from repro_torch.models.model import init_params
+from repro_torch.models.layers import Runtime
+from repro_torch.models.model import forward_train, init_params
 from repro_torch.serving.engine import (Engine, EngineConfig,
                                         validate_request_slos)
 from repro_torch.serving.scheduler import Scheduler
@@ -67,6 +75,12 @@ def run(argv=None):
     ap.add_argument("--variant", type=int, default=1, choices=[0, 1, 2],
                     help="0=bf16 baseline, 1=Cassandra-1, 2=Cassandra-2 (MX)")
     ap.add_argument("--gamma", type=int, default=3)
+    ap.add_argument("--greedy", action="store_true", default=True,
+                    help="greedy decoding (the reference's flag: always on "
+                    "here; sampling runs through the Python API)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="Wanda calibration pass over the prompts before "
+                    "formatting")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -135,6 +149,12 @@ def run(argv=None):
                     help="'on' walks the block tables in the paged "
                     "attention kernels (requires --paged); 'off' gathers "
                     "each row's prefix and attends densely")
+    ap.add_argument("--attn-chunk-q", type=int, default=None,
+                    help="flash-attention query chunk of the dense "
+                    "prefill path beyond 2048 tokens (default 1024)")
+    ap.add_argument("--attn-chunk-k", type=int, default=None,
+                    help="flash-attention key chunk of the dense prefill "
+                    "path beyond 2048 tokens (default 1024)")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome/Perfetto trace of the request "
                     "lifecycle")
@@ -181,18 +201,41 @@ def run(argv=None):
     cass = None
     if args.variant:
         cass = CassandraConfig(variant=args.variant, gamma=args.gamma)
-        params = format_params(params, cass)
+        calib = None
+        if args.calibrate:
+            calib = Calibrator()
+            with torch.inference_mode():
+                forward_train(Runtime(cfg=cfg, collector=calib), params,
+                              prompt)
+        params = format_params(params, cass, calib=calib)
         print(format_line(params_nbytes(params)))
 
+    ecfg = EngineConfig(gamma=args.gamma, greedy=args.greedy)
+    rt_extra = {}
+    if args.attn_chunk_q is not None:
+        rt_extra["attn_chunk_q"] = args.attn_chunk_q
+    if args.attn_chunk_k is not None:
+        rt_extra["attn_chunk_k"] = args.attn_chunk_k
+    telem = Telemetry(trace=args.trace_out is not None,
+                      trace_capacity=args.trace_capacity)
     if args.scheduler:
-        run_scheduler(args, cfg, params, cass, prompt["tokens"])
+        run_scheduler(args, cfg, params, cass, prompt["tokens"], ecfg,
+                      rt_extra, telem)
         return
-    eng = Engine(cfg, params, cass=cass,
-                 ecfg=EngineConfig(gamma=args.gamma), device=args.device)
+    eng = Engine(cfg, params, cass=cass, ecfg=ecfg, device=args.device,
+                 rt_extra=rt_extra)
     t0 = time.perf_counter()
-    tokens, stats = eng.generate(prompt, max_new=args.max_new,
-                                 speculative=args.variant != 0)
+    tokens, stats = eng.generate(
+        prompt, max_new=args.max_new,
+        generator=torch.Generator(device=args.device).manual_seed(args.seed),
+        speculative=args.variant != 0, telemetry=telem)
     dt = time.perf_counter() - t0
+    if args.trace_out:
+        write_trace(args.trace_out, telem.tracer)
+        print(f"[telemetry] perfetto trace -> {args.trace_out}")
+    if args.metrics_out:
+        write_metrics(args.metrics_out, telem.metrics.snapshot())
+        print(f"[telemetry] metrics jsonl -> {args.metrics_out}")
     print(f"[serve] {tokens.shape[0]} reqs, cycles={stats['cycles']}, "
           f"tokens/cycle={stats['tokens_per_cycle']:.2f}, "
           f"acceptance={stats['acceptance']}, wall={dt:.1f}s "
@@ -206,14 +249,13 @@ def run(argv=None):
           [int(t) for t in tokens[0].tolist() if t >= 0][:24])
 
 
-def run_scheduler(args, cfg, params, cass, tokens: torch.Tensor) -> None:
+def run_scheduler(args, cfg, params, cass, tokens: torch.Tensor,
+                  ecfg: EngineConfig, rt_extra: dict,
+                  telem: Telemetry) -> None:
     """Requests through the continuous-batching scheduler: arrivals every
     quarter cycle, odd requests carrying ``--stop-token``."""
     s_max = args.prompt_len + args.max_new + args.gamma + 1
-    telem = Telemetry(trace=args.trace_out is not None,
-                      trace_capacity=args.trace_capacity)
-    sched = Scheduler(cfg, params, cass=cass,
-                      ecfg=EngineConfig(gamma=args.gamma),
+    sched = Scheduler(cfg, params, cass=cass, ecfg=ecfg,
                       num_slots=args.slots, s_max=s_max,
                       speculative=args.variant != 0, paged=args.paged,
                       block_size=args.block_size, num_blocks=args.num_blocks,
@@ -227,7 +269,7 @@ def run_scheduler(args, cfg, params, cass, tokens: torch.Tensor) -> None:
                       swap_store_blocks=args.swap_store_blocks,
                       slo_aware=not args.fifo, attn_kernel=args.attn_kernel,
                       overlap=not args.no_overlap, telemetry=telem,
-                      device=args.device)
+                      device=args.device, rt_extra=rt_extra)
     prompts = tokens.cpu().numpy()
     t0 = time.perf_counter()
     for i in range(args.requests):

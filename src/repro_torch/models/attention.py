@@ -252,9 +252,12 @@ def gqa_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
 def mla_latent(rt: Runtime, p: dict, x: torch.Tensor, positions):
     """The cached quantities: latent c (B,S,kv_lora) and k_rope (B,S,rope)."""
     cfg = rt.cfg
-    kv_full = L.dense(rt, p["kv_a"], x, "mla.kv_a")
+    kv_full = L.dense(rt, p["kv_a"], x, "attn.kv_a")
     c = L.rmsnorm(p["kv_a_norm"], kv_full[..., :cfg.kv_lora_rank],
                   cfg.norm_eps)
+    if rt.collector is not None:
+        # kv_b's input: every product through it (w_uk, w_uv) reads c
+        rt.collector.observe("attn.kv_b", c)
     k_rope = L.apply_rope(kv_full[..., cfg.kv_lora_rank:][:, :, None],
                           positions, cfg.rope_theta)[:, :, 0]
     return c, k_rope
@@ -264,9 +267,9 @@ def _mla_q(rt: Runtime, p: dict, x: torch.Tensor, positions):
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope))."""
     cfg = rt.cfg
     b, s, _ = x.shape
-    ql = L.rmsnorm(p["q_a_norm"], L.dense(rt, p["q_a"], x, "mla.q_a"),
+    ql = L.rmsnorm(p["q_a_norm"], L.dense(rt, p["q_a"], x, "attn.q_a"),
                    cfg.norm_eps)
-    q = L.dense(rt, p["q_b"], ql, "mla.q_b").reshape(
+    q = L.dense(rt, p["q_b"], ql, "attn.q_b").reshape(
         b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_rope = L.apply_rope(q[..., cfg.qk_nope_dim:], positions,
                           cfg.rope_theta)
@@ -277,7 +280,7 @@ def _kv_b_split(rt: Runtime, p: dict):
     """(w_uk (L,H,nope), w_uv (L,H,v)) of ``kv_b`` in the runtime's view
     (``layers.resolve_weight`` decodes a packed one)."""
     cfg = rt.cfg
-    w = L.resolve_weight(rt, p["kv_b"]["w"], "mla.kv_b").reshape(
+    w = L.resolve_weight(rt, p["kv_b"]["w"], "attn.kv_b").reshape(
         cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_dim + cfg.v_head_dim)
     return w[..., :cfg.qk_nope_dim], w[..., cfg.qk_nope_dim:]
 
@@ -299,7 +302,7 @@ def _mla_out(rt: Runtime, p: dict, ctx, w_uv, x) -> torch.Tensor:
     out = torch.einsum("bqhl,lhn->bqhn", ctx,
                        w_uv.to(torch.float32)).to(x.dtype)
     out = out.reshape(b, sq, cfg.n_heads * cfg.v_head_dim)
-    return L.dense(rt, p["wo"], out, "mla.wo")
+    return L.dense(rt, p["wo"], out, "attn.wo")
 
 
 def mla_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,

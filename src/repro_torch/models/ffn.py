@@ -16,7 +16,7 @@ def mlp(rt: Runtime, p: dict, x: torch.Tensor, path: str = "ffn") -> torch.Tenso
         raise NotImplementedError(
             f"ffn_act={rt.cfg.ffn_act!r}: the port has SwiGLU only; other "
             "activations come with their families (ROADMAP Queue 1 step 9)")
-    g = L.dense(rt, p["w_gate"], x, f"{path}.gate")
-    u = L.dense(rt, p["w_up"], x, f"{path}.up")
+    g = L.dense(rt, p["w_gate"], x, f"{path}.w_gate")
+    u = L.dense(rt, p["w_up"], x, f"{path}.w_up")
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    return L.dense(rt, p["w_down"], h, f"{path}.down")
+    return L.dense(rt, p["w_down"], h, f"{path}.w_down")

@@ -12,6 +12,7 @@ Every matmul weight is a plain bf16 tensor or a Cassandra-packed
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -34,10 +35,15 @@ class Runtime:
     attends densely (the reference's gather path); ``"on"`` walks the
     table through ``kernels/paged_attention`` and never gathers. It needs
     a paged cache (``serving.engine.validate_serving_knobs``).
+
+    ``collector`` is a calibration stats collector (``packing.Calibrator``):
+    ``dense`` and ``unembed`` hand it each product's input, keyed by the
+    weight's path.
     """
     cfg: ModelConfig
     cass: CassandraConfig | None = None
     view: str = "plain"                 # plain | draft | target
+    collector: Any = None               # calibration stats collector
     attn_kernel: str = "off"            # off | on
     attn_chunk_q: int = 1024
     attn_chunk_k: int = 1024
@@ -65,7 +71,10 @@ def resolve_weight(rt: Runtime, w, path: str = "") -> torch.Tensor:
 
 
 def dense(rt: Runtime, p: dict, x: torch.Tensor, path: str = "") -> torch.Tensor:
-    """x @ W (+ b). ``p`` = {"w": tensor-or-packed, optional "b"}."""
+    """x @ W (+ b). ``p`` = {"w": tensor-or-packed, optional "b"};
+    ``path`` is the weight's key in its layer (``attn.wq``)."""
+    if rt.collector is not None:
+        rt.collector.observe(path, x)
     w = p["w"]
     if is_packed(w) and rt.view == "draft":
         y = DM.packed_matmul(x, w, rt.cass)
@@ -130,5 +139,7 @@ def unembed(rt: Runtime, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final projection to vocab logits (f32)."""
     if rt.cfg.tie_embeddings:
         w = params["embed"]["table"].T
+        if rt.collector is not None:
+            rt.collector.observe("lm_head", x)
         return torch.matmul(x, w.to(x.dtype)).to(torch.float32)
     return dense(rt, params["lm_head"], x, "lm_head").to(torch.float32)

@@ -6,12 +6,15 @@ of ``models/model.py``).
 ``forward_decode``  — q new tokens (1 for autoregressive/draft, γ+1 for
                       verification) against the cache; returns per-layer
                       K/V updates for the engine to commit.
+``forward_train``   — full-sequence pass with no cache, all positions'
+                      logits: the Wanda calibration forward.
 
 Parameters keep the reference's tree: stacked ``(R, …)`` leaves per layer
 group, ``(in, out)`` weights. The reference's ``lax.scan`` over R is a
 Python loop here (``_scan_groups``). MLA (deepseek) runs in the layers
 before its first routed-expert layer (``first_dense_layers``); MoE, SSM and
-encoder-decoder models are ROADMAP Queue 1, training too. Multi-token
+encoder-decoder models are ROADMAP Queue 1, training (the loss and its
+backward) too. Multi-token
 prediction heads (``mtp_depth``) feed only the reference's training loss,
 so serving neither builds nor reads them.
 """
@@ -329,6 +332,8 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
             g_upd = {}
             for j, entry in enumerate(entries):
                 ekey = f"e{j}"
+                if rt.collector is not None:
+                    rt.collector.layer(f"dec[{gi}].{ekey}", r)
                 pick = lambda grp: (_index(grp[gi][ekey], r)
                                     if grp is not None and ekey in grp[gi]
                                     else None)
@@ -343,6 +348,8 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                     g_upd[ekey] = upd
             per_layer.append(g_upd)
         updates_groups.append(_stack_updates(per_layer))
+    if rt.collector is not None:
+        rt.collector.layer(None)
     return x, updates_groups
 
 
@@ -353,6 +360,21 @@ def _entries(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Public forwards
 # ---------------------------------------------------------------------------
+
+def forward_train(rt: Runtime, params: Params, batch: dict):
+    """Full-sequence pass with no cache (the reference's ``forward_train``
+    forward; the loss and its backward belong to the training slice).
+    Returns (logits (B,S,V) f32, aux). With
+    ``rt.collector`` set it is the Wanda calibration forward."""
+    cfg = rt.cfg
+    _check_dense(cfg)
+    x = L.embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _scan_groups(rt, params["dec"], _entries(cfg), x, positions,
+                        mode="train")
+    x = L.norm(rt, params["final_norm"], x)
+    return L.unembed(rt, params, x), {}
+
 
 def forward_prefill(rt: Runtime, params: Params, batch: dict, cache: dict):
     """Process the prompt, write the cache. Returns (last_logits, cache)."""

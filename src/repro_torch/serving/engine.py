@@ -7,7 +7,10 @@ One ``spec_decode_step`` per cycle:
    (decoded once per cycle). Draft K/V live in a γ-slot scratch.
 2. One verify pass with ``view="target"`` over the γ+1 tokens: the exact
    weights, rebuilt one matrix at a time, and the exact K/V.
-3. Greedy acceptance: per-row accepted counts ``n``.
+3. Acceptance, greedy (exact match) or paper Eq. 1 rejection sampling
+   (``greedy=False``: drafts drawn from ``softmax(logits / temperature)``,
+   every draw from the caller's ``torch.Generator``): per-row accepted
+   counts ``n``.
 4. Commit: the target's K/V for the accepted prefix are encoded online and
    written at per-row offsets; rejected slots stay masked stale data.
 
@@ -18,8 +21,7 @@ full-model read, at width 1 like the reference.
 mixed-role batch where each row is PREFILL (committing prompt-chunk
 tokens), DRAFT+VERIFY or IDLE; ``chunk_prefill_step`` is the wide
 single-role prefill. The continuous-batching ``serving.scheduler`` drives
-both over a slot or a paged cache. Sampling (rejection sampling with a
-``torch.Generator``) is a later ROADMAP Queue 1 item.
+both over a slot or a paged cache.
 """
 from __future__ import annotations
 
@@ -35,16 +37,15 @@ from repro_torch.core.format import CassandraConfig
 from repro_torch.models import model as M
 from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KC
+from repro_torch.serving import telemetry as TM
 from repro_torch.serving.blockpool import blocks_needed
-
-_SAMPLING = ("sampling is not ported yet: ROADMAP Queue 1 "
-             "(rejection_sample with a torch.Generator); use greedy=True")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     gamma: int = 5
     greedy: bool = True
+    temperature: float = 1.0
     # shape-stable draft: every draft step runs at the verify width γ+1
     # over the growing token prefix (no scratch), so draft and verify see
     # the same operand shapes.
@@ -242,21 +243,37 @@ def commit(rt: Runtime, cache: dict, updates: list,
 # Decode steps
 # ---------------------------------------------------------------------------
 
+def _need_generator(greedy: bool, generator) -> None:
+    if not greedy and generator is None:
+        raise ValueError("greedy=False draws its samples from a "
+                         "torch.Generator: pass generator=")
+
+
+def _draw(logits: torch.Tensor, greedy: bool, temperature: float,
+          generator: torch.Generator | None) -> torch.Tensor:
+    """(B,) int32: the argmax, or one draw from ``softmax(logits /
+    temperature)`` in f32 over the whole vocabulary."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return SP.categorical(logits.to(torch.float32) / temperature, generator)
+
+
 def _run_drafts(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
-                ecfg: EngineConfig):
+                ecfg: EngineConfig, generator: torch.Generator | None = None):
     """γ draft steps with ``view="draft"``; reads the cache, never writes
     it, so rows whose draft inputs are garbage (prefill and idle rows of a
     fused cycle) are harmless. Returns (draft_tokens (B,γ), per-step draft
-    logits).
+    logits). ``greedy=False`` draws each draft token from ``generator``
+    (``_draw``).
 
     The cache's draft view is decoded once for the γ passes — unless the
     paged-attention kernel is on: it decodes the packed pool inside the
     kernel on every pass, so materialising would waste the decode and
     reroute the drafts onto the plain kernel."""
-    if not ecfg.greedy:
-        raise NotImplementedError(_SAMPLING)
+    _need_generator(ecfg.greedy, generator)
     cfg = rt.cfg
     gamma = ecfg.gamma
+
     rt_d = dataclasses.replace(rt, view="draft" if rt.cass else "plain")
     if rt.attn_kernel == "on" and KC.is_paged(cache):
         draft_view = None
@@ -270,7 +287,7 @@ def _run_drafts(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
             logits, _ = M.forward_decode(rt_d, params, toks, cache,
                                          cache_view=draft_view)
             lg = logits[:, i]
-            nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+            nxt = _draw(lg, ecfg.greedy, ecfg.temperature, generator)
             draft_tokens.append(nxt)
             draft_logits.append(lg)
             toks = toks.clone()
@@ -284,31 +301,39 @@ def _run_drafts(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
                                            cache_view=draft_view)
             scratch = _scratch_write(scratch, upd, i)
             lg = logits[:, -1]
-            nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+            nxt = _draw(lg, ecfg.greedy, ecfg.temperature, generator)
             draft_tokens.append(nxt)
             draft_logits.append(lg)
             tok = nxt[:, None]
     return torch.stack(draft_tokens, dim=1), draft_logits
 
 
-def _accept(draft_tokens, draft_logits, t_logits,
-            ecfg: EngineConfig) -> SP.AcceptResult:
-    if not ecfg.greedy:
-        raise NotImplementedError(_SAMPLING)
-    return SP.greedy_accept(draft_tokens, t_logits[:, :ecfg.gamma + 1],
-                            tie_margin=ecfg.tie_margin)
+def _accept(draft_tokens, draft_logits, t_logits, ecfg: EngineConfig,
+            generator: torch.Generator | None = None) -> SP.AcceptResult:
+    if ecfg.greedy:
+        return SP.greedy_accept(draft_tokens, t_logits[:, :ecfg.gamma + 1],
+                                tie_margin=ecfg.tie_margin)
+    t = ecfg.temperature
+    dprobs = torch.softmax(
+        torch.stack(draft_logits, dim=1).to(torch.float32) / t, dim=-1)
+    tprobs = torch.softmax(
+        t_logits[:, :ecfg.gamma + 1].to(torch.float32) / t, dim=-1)
+    return SP.rejection_sample(draft_tokens, dprobs, tprobs, generator)
 
 
 def spec_decode_step(rt: Runtime, params, cache: dict,
-                     cur_tokens: torch.Tensor, ecfg: EngineConfig):
+                     cur_tokens: torch.Tensor, ecfg: EngineConfig,
+                     generator: torch.Generator | None = None):
     """One speculative cycle. cur_tokens (B,1) = last committed token.
-    Returns (AcceptResult, cache)."""
+    Returns (AcceptResult, cache). ``generator`` feeds every draw of a
+    non-greedy cycle, in order: the γ drafts, then Eq. 1's uniforms and
+    its residual draw."""
     rt_t = dataclasses.replace(rt, view="target" if rt.cass else "plain")
     draft_tokens, draft_logits = _run_drafts(rt, params, cache, cur_tokens,
-                                             ecfg)
+                                             ecfg, generator)
     ver_tokens = torch.cat([cur_tokens, draft_tokens], dim=1)
     t_logits, t_upd = M.forward_decode(rt_t, params, ver_tokens, cache)
-    res = _accept(draft_tokens, draft_logits, t_logits, ecfg)
+    res = _accept(draft_tokens, draft_logits, t_logits, ecfg, generator)
     cache = commit(rt, cache, t_upd, res.n_accepted)
     return res, cache
 
@@ -330,7 +355,8 @@ def window_start(length: torch.Tensor, valid: torch.Tensor,
 
 def unified_step(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
                  chunk_tokens: torch.Tensor, prefill_valid: torch.Tensor,
-                 decode_mask: torch.Tensor, ecfg: EngineConfig):
+                 decode_mask: torch.Tensor, ecfg: EngineConfig,
+                 generator: torch.Generator | None = None):
     """One fused serving cycle over a mixed-role batch.
 
     * PREFILL rows (``prefill_valid[b] > 0``) commit their next
@@ -352,10 +378,13 @@ def unified_step(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
     may hold them a full cycle and copy them to the host late; ``commit``
     advances ``length`` on the device, so a later cycle can chain off
     ``res.next_token`` with no host push of lengths.
+
+    A non-greedy cycle draws from ``generator`` for every row (the same
+    draws whatever the roles), as ``spec_decode_step`` does.
     """
     rt_t = dataclasses.replace(rt, view="target" if rt.cass else "plain")
     draft_tokens, draft_logits = _run_drafts(rt, params, cache, cur_tokens,
-                                             ecfg)
+                                             ecfg, generator)
     is_prefill = prefill_valid > 0
     ver_tokens = torch.cat([cur_tokens, draft_tokens], dim=1)
     tokens = torch.where(is_prefill[:, None], chunk_tokens.to(torch.int32),
@@ -364,7 +393,7 @@ def unified_step(rt: Runtime, params, cache: dict, cur_tokens: torch.Tensor,
         rt_t, params, tokens, cache,
         suffix_from=window_start(cache["length"], prefill_valid,
                                  tokens.shape[1]))
-    res = _accept(draft_tokens, draft_logits, t_logits, ecfg)
+    res = _accept(draft_tokens, draft_logits, t_logits, ecfg, generator)
     n = torch.where(is_prefill,
                     prefill_valid.to(torch.int32).clamp(min=1) - 1,
                     torch.where(decode_mask, res.n_accepted, 0))
@@ -392,15 +421,17 @@ def chunk_prefill_step(rt: Runtime, params, cache: dict,
 
 
 def autoregressive_step(rt: Runtime, params, cache: dict,
-                        cur_tokens: torch.Tensor, greedy: bool = True):
-    """bf16-baseline decode: one token per full-model read. Returns
-    (next (B,), top-1 minus top-2 logit margin (B,), cache)."""
-    if not greedy:
-        raise NotImplementedError(_SAMPLING)
+                        cur_tokens: torch.Tensor,
+                        generator: torch.Generator | None = None,
+                        greedy: bool = True, temperature: float = 1.0):
+    """bf16-baseline decode: one token per full-model read, the argmax or
+    (``greedy=False``) a draw from ``softmax(logits / temperature)``.
+    Returns (next (B,), top-1 minus top-2 logit margin (B,), cache)."""
+    _need_generator(greedy, generator)
     rt_t = dataclasses.replace(rt, view="target" if rt.cass else "plain")
     logits, upd = M.forward_decode(rt_t, params, cur_tokens, cache)
     lg = logits[:, -1]
-    nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+    nxt = _draw(lg, greedy, temperature, generator)
     cache = commit(rt, cache, upd,
                    torch.zeros(lg.shape[0], dtype=torch.int32,
                                device=lg.device))
@@ -445,22 +476,33 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params,
                  cass: CassandraConfig | None = None,
-                 ecfg: EngineConfig = EngineConfig(), device="cuda"):
+                 ecfg: EngineConfig = EngineConfig(), device="cuda",
+                 rt_extra: dict | None = None):
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') but CUDA is not "
                                "available; pass device='cpu' explicitly")
-        if not ecfg.greedy:
-            raise NotImplementedError(_SAMPLING)
         self.cfg, self.cass, self.ecfg = cfg, cass, ecfg
         self.params = params
         self.device = torch.device(device)
         self.rt = Runtime(cfg=cfg, cass=cass,
-                          view="target" if cass else "plain")
+                          view="target" if cass else "plain",
+                          **(rt_extra or {}))
 
     @torch.inference_mode()
-    def generate(self, batch: dict, max_new: int, speculative: bool = True):
+    def generate(self, batch: dict, max_new: int,
+                 generator: torch.Generator | None = None,
+                 speculative: bool = True, telemetry=None):
         """Returns (tokens (B, max_new+γ+1) int32, -1 beyond each row's
         output, every row holding ≥ max_new tokens), stats.
+
+        ``generator`` feeds a non-greedy run's draws (default: one seeded
+        with 0 on the engine's device, the reference's ``PRNGKey(0)``). As
+        in the reference, the prefill token is the argmax, and
+        ``speculative=False`` runs greedy whatever ``ecfg.greedy`` says.
+        ``telemetry`` (a ``serving.telemetry.Telemetry``) gets one
+        ``acceptance_len`` observation and one ``CYCLE`` event per active
+        row and cycle and the ``cycles`` / ``accepted`` / ``drafted`` /
+        ``committed`` counters, from host values the loop reads anyway.
 
         The loop's only host reads are one ``.cpu()`` of ``n_accepted``
         per speculative cycle and the final harvest. Autoregressive runs
@@ -468,6 +510,8 @@ class Engine:
         target logits' top-1 minus top-2 margin (the prefill token's
         first), the input of the near-tie rule that checks losslessness.
         """
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
         tokens = batch["tokens"].to(self.device)
         b, s = tokens.shape
         pad = self.ecfg.gamma + 1
@@ -490,7 +534,7 @@ class Engine:
             active = committed < max_new
             if speculative:
                 res, cache = spec_decode_step(self.rt, self.params, cache,
-                                              cur, self.ecfg)
+                                              cur, self.ecfg, generator)
                 buf, count = scatter_tokens(buf, count, res.tokens,
                                             res.valid, res.n_accepted + 1)
                 n = res.n_accepted.cpu().numpy()
@@ -498,6 +542,15 @@ class Engine:
                 accepted += int(n[active].sum())
                 drafted += self.ecfg.gamma * int(active.sum())
                 cur = res.next_token[:, None]
+                if telemetry is not None:
+                    for row in np.flatnonzero(active):
+                        telemetry.metrics.observe("acceptance_len",
+                                                  int(n[row]))
+                        telemetry.tracer.emit(
+                            TM.CYCLE, rid=int(row), slot=int(row),
+                            cycle=float(cycles + 1),
+                            args=(self.ecfg.gamma, int(n[row]),
+                                  int(n[row]) + 1))
             else:
                 nxt, margin, cache = autoregressive_step(
                     self.rt, self.params, cache, cur)
@@ -506,6 +559,11 @@ class Engine:
                 margins.append(margin)
                 committed += 1
                 cur = nxt[:, None]
+                if telemetry is not None:
+                    for row in np.flatnonzero(active):
+                        telemetry.tracer.emit(
+                            TM.CYCLE, rid=int(row), slot=int(row),
+                            cycle=float(cycles + 1), args=(0, 0, 1))
             cycles += 1
         delivered = count.cpu().numpy().astype(np.int64)
         stats = {"cycles": cycles,
@@ -516,4 +574,9 @@ class Engine:
                  "acceptance": accepted / drafted if drafted else None}
         if not speculative:
             stats["margins"] = torch.stack(margins, dim=1).cpu().numpy()
+        if telemetry is not None:
+            telemetry.metrics.inc("cycles", cycles)
+            telemetry.metrics.inc("accepted", accepted)
+            telemetry.metrics.inc("drafted", drafted)
+            telemetry.metrics.inc("committed", int(delivered.sum()) - b)
         return buf, stats

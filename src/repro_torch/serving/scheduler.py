@@ -78,7 +78,11 @@ slowest one.
 jit retraces have no eager counterpart: each step instead records the
 operand shapes it was dispatched with (``step_shapes``; ``trace_counts``
 counts them per step), the bucket discipline a CUDA graph per step needs.
-Greedy decoding only.
+
+Non-greedy decoding (``EngineConfig(greedy=False)``) draws from the
+scheduler's ``generator`` (default: seeded with 0 on its device) on the
+stream that runs the cycle, in dispatch order; such a run never free-runs
+(``_free_run_ok``), so overlap on and off draw alike.
 """
 from __future__ import annotations
 
@@ -98,8 +102,7 @@ from repro_torch.serving import telemetry as TM
 from repro_torch.serving.blockpool import (BlockAllocator, TRASH_BLOCK,
                                           blocks_needed)
 from repro_torch.serving.costmodel import CostModel
-from repro_torch.serving.engine import (_SAMPLING, EngineConfig,
-                                        autoregressive_step,
+from repro_torch.serving.engine import (EngineConfig, autoregressive_step,
                                         chunk_prefill_step, spec_decode_step,
                                         unified_step, validate_request_slos,
                                         validate_serving_knobs)
@@ -241,9 +244,9 @@ def _freeze_rows(length0: torch.Tensor, cache: dict,
 
 
 def _masked_spec(rt: Runtime, params, cache: dict, cur, active,
-                 ecfg: EngineConfig):
+                 ecfg: EngineConfig, generator: torch.Generator):
     length0 = cache["length"]
-    res, cache = spec_decode_step(rt, params, cache, cur, ecfg)
+    res, cache = spec_decode_step(rt, params, cache, cur, ecfg, generator)
     return res, _freeze_rows(length0, cache, active)
 
 
@@ -260,10 +263,12 @@ def _masked_chunk(rt: Runtime, params, cache: dict, tokens, valid):
 
 
 def _masked_unified(rt: Runtime, params, cache: dict, cur, chunk_tokens,
-                    prefill_valid, decode_mask, ecfg: EngineConfig):
+                    prefill_valid, decode_mask, ecfg: EngineConfig,
+                    generator: torch.Generator):
     length0 = cache["length"]
     res, last, cache = unified_step(rt, params, cache, cur, chunk_tokens,
-                                    prefill_valid, decode_mask, ecfg)
+                                    prefill_valid, decode_mask, ecfg,
+                                    generator)
     active = decode_mask | (prefill_valid > 0)
     return res, last, _freeze_rows(length0, cache, active)
 
@@ -287,13 +292,19 @@ class Scheduler:
                  slo_aware: bool = True, attn_kernel: str = "off",
                  overlap: bool = True,
                  debug_invariants: int | None = None,
-                 telemetry: Telemetry | None = None, device="cuda"):
-        if not ecfg.greedy:
-            raise NotImplementedError(_SAMPLING)
+                 telemetry: Telemetry | None = None, device="cuda",
+                 generator: torch.Generator | None = None,
+                 rt_extra: dict | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Scheduler(device='cuda') but CUDA is not "
                                "available; pass device='cpu' explicitly")
+        # the draws of non-greedy cycles, in dispatch order (wide prefill
+        # cycles draw nothing); every run from reset() starts from the
+        # generator's state here, as the reference restarts its key
+        self.generator = (generator if generator is not None else
+                          torch.Generator(device=self.device).manual_seed(0))
+        self._generator_state = self.generator.get_state()
         self.cfg, self.cass, self.ecfg = cfg, cass, ecfg
         self.params = params
         self.num_slots, self.s_max = num_slots, s_max
@@ -337,7 +348,7 @@ class Scheduler:
         self.debug_invariants = int(debug_invariants)
         self.rt = Runtime(cfg=cfg, cass=cass,
                           view="target" if cass else "plain",
-                          attn_kernel=attn_kernel)
+                          attn_kernel=attn_kernel, **(rt_extra or {}))
         packed = cass is not None
         if paged:
             self.cache = KC.init_paged_cache(
@@ -364,6 +375,7 @@ class Scheduler:
         self.lengths = np.zeros(self.num_slots, np.int64)
         self.cur = np.zeros((self.num_slots, 1), np.int32)
         self.clock = 0.0
+        self.generator.set_state(self._generator_state)
         self.telemetry.reset()
         self.tracer = self.telemetry.tracer
         self.metrics = self.telemetry.metrics
@@ -1244,7 +1256,7 @@ class Scheduler:
         t0 = time.perf_counter()
         res, last, self.cache = _masked_unified(
             self.rt, self.params, self.cache, cur, chunk_d, valid_d, dmask,
-            self.ecfg)
+            self.ecfg, self.generator)
         outs = (res.tokens, res.valid, res.n_accepted, res.next_token)
         if plan.prefilling:
             outs += (last,)
@@ -1318,14 +1330,16 @@ class Scheduler:
         host state cannot change the schedule: nothing queued, every
         resident row past prefill and more than γ+1 tokens from its cap
         (cap-driven retires are foreseen; only stop tokens make zombies),
-        no copy-on-write owed, and the in-flight cycle itself pure
-        decode."""
+        no copy-on-write owed, the in-flight cycle itself pure decode, and
+        greedy decoding: a non-greedy run always drains, so its draws never
+        depend on the overlap."""
         p = self._in_flight
         horizon = self.ecfg.gamma + 1
         return (p is not None and p.kind == "unified"
                 and not p.plan.prefilling
                 and not self.queue
                 and not self._pending_cow
+                and self.ecfg.greedy
                 and all(r is None or (r.prefill_done
                                       and len(r.output) + horizon
                                       < r.max_new)
@@ -1496,7 +1510,8 @@ class Scheduler:
         if self.speculative:
             self._record_shapes("spec", cur, act)
             res, self.cache = _masked_spec(self.rt, self.params, self.cache,
-                                           cur, act, self.ecfg)
+                                           cur, act, self.ecfg,
+                                           self.generator)
             host, done = _stage_to_host(
                 (res.tokens, res.valid, res.n_accepted, res.next_token))
             if done is not None:

@@ -1524,3 +1524,76 @@ def test_prefill_attention_independent_of_chunk_start_on_card(card, arch):
     a, b = AR.chunk_start_outputs(cfg, card, seed=3)
     torch.cuda.synchronize()
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _one_hot_eq1(rng, b: int, gamma: int, v: int):
+    """Eq. 1 inputs whose residual is one-hot at every stopping position
+    (p_i = (1-e)·onehot(t_i) + e·q_i for i < γ, p_γ = onehot(t_γ)), so the
+    one draw left has one outcome on any generator; half the drafts are
+    the target's t_i, so rows stop anywhere in 0..γ."""
+    logits = rng.standard_normal((b, gamma, v)).astype(np.float32)
+    q = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    t = rng.integers(0, v, (b, gamma + 1))
+    eps = rng.uniform(0.05, 0.9, (b, gamma, 1)).astype(np.float32)
+    onehot = np.zeros((b, gamma + 1, v), np.float32)
+    np.put_along_axis(onehot, t[..., None], 1.0, axis=-1)
+    p = np.concatenate([(1 - eps) * onehot[:, :gamma] + eps * q,
+                        onehot[:, gamma:]], axis=1).astype(np.float32)
+    draft = np.where(rng.random((b, gamma)) < 0.5, t[:, :gamma],
+                     rng.integers(0, v, (b, gamma)))
+    r = rng.random((b, gamma)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (draft.astype(np.int32), q, p, r)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma,v", [(1, 48), (3, 1000), (5, 128256)])
+def test_rejection_sample_on_card_matches_cpu(card, gamma, v):
+    """``rejection_sample`` on the card against its CPU run with the same
+    ``r`` and one-hot residuals: the whole result bit for bit."""
+    from repro_torch.core import speculative as SP
+    draft, q, p, r = _one_hot_eq1(np.random.default_rng(v), 16, gamma, v)
+    cpu = SP.rejection_sample(draft, q, p, torch.Generator().manual_seed(0),
+                              r=r)
+    gpu = SP.rejection_sample(draft.to(card), q.to(card), p.to(card),
+                              torch.Generator(device=card).manual_seed(0),
+                              r=r.to(card))
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+    assert cpu.n_accepted.min() == 0 and cpu.n_accepted.max() == gamma
+
+
+@pytest.mark.cuda
+def test_sampled_engine_and_scheduler_seeds_on_card(card):
+    """The sampled Engine and paged Scheduler (kernels on) at SMOKE width
+    on the card: one seed gives the same tokens twice, another seed other
+    tokens, every row its tokens; the Scheduler's overlap on == off."""
+    from repro_torch.serving.scheduler import Scheduler
+    cfg = get_config("llama3-8b", smoke=True)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device=card).manual_seed(2)
+    params = format_params(init_params(cfg, gen, device=card), cass)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 12), generator=gen,
+                            device=card).to(torch.int32)
+    ecfg = EngineConfig(gamma=3, greedy=False, temperature=0.8)
+    eng = Engine(cfg, params, cass=cass, ecfg=ecfg, device=card)
+    runs = [eng.generate({"tokens": prompts}, 10,
+                         generator=torch.Generator(device=card).manual_seed(s))
+            for s in (5, 5, 6)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert not torch.equal(runs[0][0], runs[2][0])
+    assert ((runs[0][0] >= 0).sum(1) >= 10).all()
+
+    def serve(seed, overlap):
+        sched = Scheduler(cfg, params, cass=cass, ecfg=ecfg, num_slots=2,
+                          s_max=32, paged=True, block_size=4, chunk_size=8,
+                          attn_kernel="on", overlap=overlap, device=card,
+                          generator=torch.Generator(
+                              device=card).manual_seed(seed))
+        reqs = [sched.submit(p, max_new=10) for p in prompts.cpu().numpy()]
+        sched.run()
+        assert all(len(r.output) == 10 for r in reqs)
+        return [r.output for r in reqs]
+
+    a = serve(7, True)
+    assert a == serve(7, True) == serve(7, False)
+    assert a != serve(8, True)

@@ -259,9 +259,16 @@ def test_stable_draft_on_a_plain_cache_accepts_everything(setup):
 
 
 def test_engine_refusals(setup):
-    with pytest.raises(NotImplementedError, match="torch.Generator"):
-        E.Engine(setup["cfg"], setup["packed"], cass=setup["cass"],
-                 ecfg=E.EngineConfig(greedy=False), device="cpu")
+    """Sampling is no longer refused: under ``greedy=False`` the
+    autoregressive ``generate`` stays greedy, as the reference's does (its
+    AR step never receives ``ecfg.greedy``). CUDA without a card is."""
+    eng = E.Engine(setup["cfg"], setup["packed"], cass=setup["cass"],
+                   ecfg=E.EngineConfig(gamma=GAMMA, greedy=False),
+                   device="cpu")
+    ar, _ = eng.generate({"tokens": torch.from_numpy(setup["prompt"])},
+                         MAX_NEW, generator=torch.Generator().manual_seed(3),
+                         speculative=False)
+    np.testing.assert_array_equal(ar.numpy(), setup["ar"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             E.Engine(setup["cfg"], setup["packed"], cass=setup["cass"])
