@@ -138,10 +138,32 @@ these phases; any failure exits non-zero:
               and overlap on == off at 2 layers, bit for bit, C-2 at 2
               layers and phase 11's DeepSeek-V3 repeatable, launches as
               the passes imply;
-16. report  — ``kernels: [...]``, one JSON line per the kernels table,
+16. families — the dense GQA family and top-k MoE, each from a generator
+              of its own, C-1 (γ=3), 4 × 128-token prompts × 32 new: (a)
+              qwen3-4b at full width, all 36 layers (``qk_norm``, tied
+              embeddings: 252 ``draft_matmul`` launches a draft pass, no
+              lm_head kernel): ``draft_matmul`` and ``target_decode`` per
+              shape as phase 4, every packed matrix's target view bit for
+              bit, phase 6's Engine gates and launch rules, the paged
+              ``Scheduler`` (kernels on) with phase 7's first-token gate,
+              and at 2 layers overlap on == off and fused ==
+              alternating bit for bit; (b) DBRX at full width, 2 layers
+              (16 experts, top-4; experts and router unpacked): its shapes
+              as (a), ``moe`` against ``moe_reference`` on the card,
+              phase 6's Engine gates, the ``Scheduler`` with the first-
+              token gate, overlap on == off and fused == alternating bit
+              for bit, all at ``moe_capacity_factor = n_experts /
+              n_experts_per_tok`` (0 drops), and one run at the default
+              1.25 with its drops printed; (c) DeepSeek-V3 at full width,
+              4 layers (3 dense, 1 routed: 256 experts, top-8, the shared
+              expert), the shared expert's shapes, ``moe`` against
+              ``moe_reference``, phase 6's Engine gates and the
+              ``Scheduler`` with ``paged_mla`` and the first-token gate,
+              at the no-overflow capacity;
+17. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 4c, 7-16 (4b and 4c read phase 6's
+Phases run in the order 1-6, 4b, 4c, 7-17 (4b and 4c read phase 6's
 prompts). Phases 6, 7, 9, 10, 12, 13, each run of 14 and the first of
 each pair in 15 set every kernel's launch count to 0 before their run
 and check it after against what the passes imply
@@ -673,10 +695,18 @@ def ar_steps(rt_t, params, cache, lg, n: int, width: int):
     return torch.cat(toks, 1), torch.stack(logits, 1)
 
 
-def main_phase(packed, cfg, cass, gen, args) -> dict:
+def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
+               rt_extra: dict | None = None) -> dict:
+    """Phase 6 (and phase 16's Engine runs, under ``tag``): AR steps at
+    width 1 and at the verify width against one verify pass, the draft
+    side of one cycle, then ``Engine.generate`` autoregressive and
+    speculative; spec tokens against the verify-width AR run under the
+    near-tie rule (>= 90% of positions), launches as the passes imply.
+    ``rt_extra`` goes to the Engine's ``Runtime`` (MoE's capacity)."""
     import dataclasses
 
     import torch
+    from repro_torch.configs import layer_groups
     from repro_torch.kernels import draft_matmul as DM
     from repro_torch.models import model as M
     from repro_torch.serving import kvcache as KC
@@ -687,8 +717,8 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                                       device="cuda").to(torch.int32)}
     eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=gamma),
-                 device="cuda")
-    per_pass = 7 * cfg.n_layers + 1
+                 device="cuda", rt_extra=rt_extra)
+    per_pass = draft_matrices(packed)
 
     # tau per width: γ+1 AR steps at that width against one width-(γ+1)
     # verify pass over the same tokens from the same prefilled cache. The
@@ -710,10 +740,10 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
             torch.cuda.synchronize()
             verify_ms = (time.perf_counter() - t0) * 1e3
             if not torch.isfinite(l_v).all():
-                fail("main: target logits are not finite")
+                fail(f"{tag}: target logits are not finite")
             diff = logits[:, 1:gamma + 2] - l_v
             gap[width] = diff.abs().max().item()
-            say(f"[main] AR steps at width {width} vs the verify pass, "
+            say(f"[{tag}] AR steps at width {width} vs the verify pass, "
                 f"target logits over {gamma + 1} positions: max abs diff "
                 f"{gap[width]:.3g}, rms "
                 f"{diff.square().mean().sqrt().item():.3g} (logit rms "
@@ -721,7 +751,7 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
             if width > 1:
                 wide = (toks.cpu().numpy(), top2_margin(logits).cpu().numpy())
             del toks, logits, l_v, diff
-        say(f"[main] one verify pass (target view, width {gamma + 1}, "
+        say(f"[{tag}] one verify pass (target view, width {gamma + 1}, "
             f"{cfg.n_layers} layers): {verify_ms:.1f} ms")
         # the draft side of one cycle: the cache's draft view, then γ passes
         rt_d = dataclasses.replace(eng.rt, view="draft")
@@ -734,7 +764,7 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
                     torch.argmax(lg, -1).to(torch.int32)[:, None], eng.ecfg)
         torch.cuda.synchronize()
         drafts_ms = (time.perf_counter() - t0) * 1e3
-    say(f"[main] draft side of one cycle: {drafts_ms:.1f} ms = the cache's "
+    say(f"[{tag}] draft side of one cycle: {drafts_ms:.1f} ms = the cache's "
         f"draft view {view_ms:.1f} ms + {gamma} draft passes "
         f"{(drafts_ms - view_ms) / gamma:.1f} ms each")
     lg_cpu = lg.to(torch.float32).cpu()
@@ -760,50 +790,58 @@ def main_phase(packed, cfg, cass, gen, args) -> dict:
     ar_np, sp_np = ar.cpu().numpy(), sp.cpu().numpy()
     for what, t in (("AR", ar_np), ("spec", sp_np)):
         if t.shape != (b, n + gamma + 1):
-            fail(f"main: {what} tokens have shape {t.shape}")
+            fail(f"{tag}: {what} tokens have shape {t.shape}")
         if not ((t[:, :n] >= 0) & (t[:, :n] < cfg.vocab_size)).all():
-            fail(f"main: {what} tokens out of range: {t[:, :n]}")
+            fail(f"{tag}: {what} tokens out of range: {t[:, :n]}")
     # lossless: against the AR run at the verify width (tau from its gap)
     tau = 2.0 * gap[gamma + 1]
     compared, cut = tau_check(sp_np, wide[0], wide[1], tau, n)
     share = compared / (b * n)
-    say(f"[main] lossless: spec == AR at the verify width {gamma + 1} on "
+    say(f"[{tag}] lossless: spec == AR at the verify width {gamma + 1} on "
         f"{compared} of {b * n} positions ({share:.1%}); tau = 2 x its max "
         f"abs diff = {tau:.3g} cut {cut}")
     if share < 0.9:
-        fail(f"main: only {share:.1%} of positions compared under tau")
+        fail(f"{tag}: only {share:.1%} of positions compared under tau")
     # and against the engine's width-1 AR (tau from the width-1 gap)
     tau1 = 2.0 * gap[1]
-    compared1, cut1 = tau_check(sp_np, ar_np, st_ar["margins"], tau1, n)
-    say(f"[main] spec == Engine AR (width 1) on {compared1} of {b * n} "
+    compared1, cut1 = tau_check(sp_np, ar_np, st_ar["margins"], tau1, n,
+                                what=f"{tag} width 1")
+    say(f"[{tag}] spec == Engine AR (width 1) on {compared1} of {b * n} "
         f"positions ({compared1 / (b * n):.1%}); tau = 2 x the width-1 max "
         f"abs diff = {tau1:.3g} cut {cut1}; AR margins below tau: "
         f"{int((st_ar['margins'][:, :n] < tau1).sum())} of {b * n}")
     expect = st_sp["draft_passes"] * per_pass
-    say(f"[main] draft_matmul launches {launches} = draft passes "
+    say(f"[{tag}] draft_matmul launches {launches} = draft passes "
         f"{st_sp['draft_passes']} x {per_pass}: {launches == expect}")
     if launches == 0 or launches != expect:
-        fail(f"main: draft_matmul launched {launches} times, expected "
+        fail(f"{tag}: draft_matmul launched {launches} times, expected "
              f"{expect}")
     # one target_decode per packed weight per target pass; one kv_view
     # per KV target view per layer per verify pass and per draft view of
     # the cache once per cycle; one kv_encode per store per commit
-    cyc, mats = st_sp["cycles"], packed_matrices(packed)
-    check_launches("main", codec, {
+    # (a layer group's stores encode and view in one launch each)
+    cyc, mats, groups = (st_sp["cycles"], packed_matrices(packed),
+                         len(layer_groups(cfg)))
+    check_launches(tag, codec, {
         "mx_decode": 0, "mx_view": 0, "kv_topk": 0,
-        "kv_encode": 2 * (1 + cyc),
-        "kv_view": 2 * cfg.n_layers * cyc + 2 * cyc, "unary_decode": 0,
+        "kv_encode": 2 * groups * (1 + cyc),
+        "kv_view": 2 * cfg.n_layers * cyc + 2 * groups * cyc,
+        "unary_decode": (st_sp["draft_passes"] * cfg.n_layers
+                         * _kv_b_pieces(packed) if cfg.mla else 0),
         "target_decode": mats * (1 + cyc)})
-    say(f"[main] spec: cycles {st_sp['cycles']}, acceptance "
+    say(f"[{tag}] spec: cycles {st_sp['cycles']}, acceptance "
         f"{st_sp['acceptance']:.3f}, tokens/cycle "
         f"{st_sp['tokens_per_cycle']:.3f}, {b * n / sp_s:.2f} tok/s "
         f"({sp_s:.1f} s)")
-    say(f"[main] AR (Engine, width 1): cycles {st_ar['cycles']}, "
+    say(f"[{tag}] AR (Engine, width 1): cycles {st_ar['cycles']}, "
         f"{b * n / ar_s:.2f} tok/s ({ar_s:.1f} s)")
-    say(f"[main] max_memory_allocated during the spec run "
+    say(f"[{tag}] max_memory_allocated during the spec run "
         f"{peak / 2**30:.2f} GiB")
     return {"launches": launches, "codec": codec, "prompt": prompt["tokens"],
-            "lg": lg_cpu, "wide": wide, "acceptance": st_sp["acceptance"]}
+            "lg": lg_cpu, "wide": wide, "acceptance": st_sp["acceptance"],
+            "verify_ms": verify_ms, "tok_s": b * n / sp_s,
+            "cycle_ms": sp_s * 1e3 / st_sp["cycles"], "peak": peak,
+            "gap1": gap[1]}
 
 # ---------------------------------------------------------------------------
 # Phase 4b: the paged-attention kernels against their plain versions
@@ -1586,6 +1624,17 @@ def packed_matrices(packed) -> int:
     layer): one ``target_decode`` launch each per C-1 target pass, one
     ``mx_view`` launch each per C-2 draft or target pass."""
     return sum(_n_layers(w) for _, w in _packed_weights(packed))
+
+
+def draft_matrices(packed) -> int:
+    """``draft_matmul`` launches per draft pass: one per packed weight
+    matrix but MLA's kv_b, whose draft view ``resolve_weight`` decodes
+    (7 x layers + 1 for Llama-3-8B and DeepSeek-V3; 7 x layers for a
+    tied-embedding model such as qwen3-4b, whose unembed is the bf16
+    table; 4 x layers + 1 for DBRX, whose routed experts and router stay
+    unpacked)."""
+    return sum(_n_layers(w) for path, w in _packed_weights(packed)
+               if not path.endswith("/kv_b/w"))
 
 
 def codec_launches() -> dict:
@@ -2461,15 +2510,18 @@ def pass_launches(kind: str, st: dict, cfg, cass, packed) -> dict:
     of phases 7, 10 and 13): ``kind`` "c1" (GQA, attention kernels on),
     "c2" (attention kernel off) or "mla" (``paged_mla``). Block copies,
     spills and restores are plain indexing: no launch."""
+    from repro_torch.configs import layer_groups
     layers, gamma = cfg.n_layers, cass.gamma
     unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
     drafts, targets = gamma * unified, st["cycles"]
     mats = packed_matrices(packed)
+    groups = len(layer_groups(cfg))     # a group's stores encode at once
     out = dict.fromkeys(all_launches(), 0)
     if kind == "c1":
-        out.update(draft_matmul=drafts * (7 * layers + 1),
+        out.update(draft_matmul=drafts * draft_matrices(packed),
                    paged_gqa=targets * layers,
-                   paged_gqa_packed=drafts * layers, kv_encode=2 * targets,
+                   paged_gqa_packed=drafts * layers,
+                   kv_encode=2 * groups * targets,
                    kv_view=targets * 2 * layers,
                    target_decode=targets * mats)
     elif kind == "c2":
@@ -2477,9 +2529,9 @@ def pass_launches(kind: str, st: dict, cfg, cass, packed) -> dict:
                    + gamma * unified * mats + 2 * unified,
                    kv_topk=2 * targets)
     else:
-        out.update(draft_matmul=drafts * (7 * layers + 1),
+        out.update(draft_matmul=drafts * draft_matrices(packed),
                    paged_mla=(targets + drafts) * layers,
-                   kv_encode=2 * targets,
+                   kv_encode=2 * groups * targets,
                    kv_view=(targets + drafts) * 2 * layers,
                    unary_decode=drafts * layers * _kv_b_pieces(packed),
                    target_decode=targets * mats)
@@ -3364,6 +3416,343 @@ def sampling_phase(args, main: dict, mla: dict) -> None:
         f"faults {faults})")
 
 # ---------------------------------------------------------------------------
+# Phase 16: the dense GQA family (qwen3-4b) and top-k MoE (DBRX,
+# DeepSeek-V3's routed layers)
+# ---------------------------------------------------------------------------
+
+def family_setup(tag: str, cfg, seed: int) -> dict:
+    """Random weights for ``cfg`` from ``seed`` on a generator of its own,
+    packed in Cassandra-1 (γ=3; the routed experts and the router stay
+    plain, as the reference's walk leaves them), the plain tree freed.
+    ``extra`` is the ``Runtime`` fields the bitwise gates run at: for an
+    MoE model the capacity factor n_experts / n_experts_per_tok, at which
+    no expert's capacity can overflow (overflow couples rows)."""
+    import torch
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params, params_nbytes
+    from repro_torch.launch.serve import format_line
+    from repro_torch.models.model import cfg_has_moe, init_params
+
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    plain = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in _leaves(plain))
+    t0 = time.perf_counter()
+    packed = format_params(plain, cass)
+    torch.cuda.synchronize()
+    t_fmt = time.perf_counter() - t0
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[{tag}] {cfg.name}, {cfg.n_layers} layers at full width (d "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, experts "
+        f"{cfg.n_experts} top-{cfg.n_experts_per_tok}): "
+        f"{n_par / 1e9:.3f}e9 parameters; init {t_init:.1f} s, "
+        f"format_params {t_fmt:.1f} s; {draft_matrices(packed)} draft_matmul "
+        f"launches a draft pass, {packed_matrices(packed)} target_decode a "
+        f"target pass")
+    say(format_line(params_nbytes(packed)).replace("[format]", f"[{tag}]"))
+    extra = ({"moe_capacity_factor": cfg.n_experts / cfg.n_experts_per_tok}
+             if cfg_has_moe(cfg) else {})
+    return {"cfg": cfg, "cass": cass, "packed": packed, "gen": gen,
+            "extra": extra}
+
+
+class DropCounter:
+    """Sums ``aux["dropped"]`` of every ``ffn.moe`` call while active: the
+    sum stays on the card and is read once, at the end (serving itself
+    ignores the aux, as the reference does)."""
+
+    def __enter__(self):
+        from repro_torch.models import ffn as F
+        self._module, self._moe = F, F.moe
+        self.total, self.calls = None, 0
+
+        def counted(rt, p, x):
+            out, aux = self._moe(rt, p, x)
+            d = aux["dropped"]
+            self.total = d if self.total is None else self.total + d
+            self.calls += 1
+            return out, aux
+
+        F.moe = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._module.moe = self._moe
+
+    @property
+    def dropped(self) -> int:
+        return 0 if self.total is None else int(self.total)
+
+
+def family_sched(tag: str, m: dict, args, eng: dict, kind: str,
+                 rt_extra: dict | None = None) -> int:
+    """The paged ``Scheduler`` (kernels on) on phase 16's model ``m`` over
+    the Engine run's prompts: launches as the passes imply
+    (``pass_launches``), first-token logits within a tenth of the logit
+    rms of the Engine's prefill, tokens against the Engine's AR at the
+    verify width under the near-tie rule (share printed). Returns the
+    MoE drops."""
+    import numpy as np
+    import torch
+
+    cfg, cass, packed = m["cfg"], m["cass"], m["packed"]
+    n = args.max_new
+    lg = eng["lg"].numpy()
+    lrms = float(np.sqrt((lg.astype(np.float64) ** 2).mean()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with DropCounter() as drops:
+        sched, tokens, first, wall = serve_paged(
+            cfg, packed, cass, eng["prompt"], n, attn_kernel="on",
+            rt_extra=rt_extra)
+    got = all_launches()
+    st = sched.summary()
+    del sched
+    expect = pass_launches(kind, st, cfg, cass, packed)
+    say(f"[{tag}] launches {got}; expected {expect}: {got == expect}")
+    if got != expect:
+        fail(f"{tag}: launches {got} != expected {expect}")
+    gmax, grms = _logit_gap(first, lg)
+    say(f"[{tag}] first-token logits vs the Engine's prefill: max abs diff "
+        f"{gmax:.4g}, rms {grms:.4g} (logit rms {lrms:.4g}; limit "
+        f"{0.1 * lrms:.4g})")
+    if not gmax < 0.1 * lrms:
+        fail(f"{tag}: first-token logits differ from the Engine's by {gmax}")
+    ref_tok, margins = eng["wide"]
+    compared, cut = tau_check(tokens, ref_tok, margins, 2.0 * gmax, n,
+                              what=tag)
+    b = tokens.shape[0]
+    unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
+    uni = st["bucket_wall_ms"].get("unified", {})
+    say(f"[{tag}] {b} requests x {n} tokens: cycles {st['cycles']} (unified "
+        f"{unified}), acceptance {st['acceptance']:.3f}, {b * n / wall:.2f} "
+        f"tok/s ({wall:.1f} s), unified step {uni.get('mean_ms', 0.0):.1f} "
+        f"ms; tokens == Engine (== AR at the verify width) on {compared} of "
+        f"{b * n} positions under tau = 2 x the first-token gap = "
+        f"{2 * gmax:.3g}, cut {cut}; MoE calls {drops.calls}, dropped "
+        f"{drops.dropped}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return drops.dropped
+
+
+def bitwise_runs(tag: str, cfg, packed, cass, prompt, n: int, runs,
+                 rt_extra: dict | None = None) -> dict:
+    """The paged ``Scheduler`` (kernels on) once per ``runs`` entry (name,
+    extra keywords); every run's tokens must equal the first's bit for
+    bit. Returns {name: (tokens, MoE drops)}."""
+    import numpy as np
+    out = {}
+    for name, kw in runs:
+        with DropCounter() as drops:
+            _, tokens, _, wall = serve_paged(cfg, packed, cass, prompt, n,
+                                             attn_kernel="on",
+                                             rt_extra=rt_extra, **kw)
+        out[name] = (tokens, drops.dropped)
+        say(f"[{tag}] {name}: {tokens.shape[0]} x {n} tokens in {wall:.1f} "
+            f"s; MoE dropped {drops.dropped} of {drops.calls} calls' tokens")
+    first = runs[0][0]
+    for name, _ in runs[1:]:
+        same = np.array_equal(out[name][0], out[first][0])
+        say(f"[{tag}] {name} == {first}, bit for bit: {same}")
+        if not same:
+            fail(f"{tag}: tokens with {name} differ from {first}")
+    return out
+
+
+def _qwen_weights_by_shape(packed, cfg) -> dict:
+    """qwen3-4b's five draft-product shapes (wq 2560 -> 4096 and wo 4096 ->
+    2560 differ: n_heads x hd != d_model) and their products a pass; the
+    tied unembed multiplies the bf16 table, no kernel."""
+    e0, r = packed["dec"][0]["e0"], cfg.n_layers
+    return {"wq": (e0["attn"]["wq"]["w"], r),
+            "wk/wv": (e0["attn"]["wk"]["w"], 2 * r),
+            "wo": (e0["attn"]["wo"]["w"], r),
+            "w_gate/w_up": (e0["ffn"]["w_gate"]["w"], 2 * r),
+            "w_down": (e0["ffn"]["w_down"]["w"], r)}
+
+
+def qwen_phase(args) -> dict:
+    """Phase 16a: qwen3-4b at full width, all 36 layers, C-1 (γ=3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    m = family_setup("qwen", get_config("qwen3-4b"), args.seed + 16)
+    cfg, cass, packed = m["cfg"], m["cass"], m["packed"]
+    by_shape = _qwen_weights_by_shape(packed, cfg)
+    draft_shapes(by_shape, cass, torch.Generator(
+        device="cuda").manual_seed(args.seed + 17), "qwen-kernels")
+    err = target_all_bitwise(packed, cass, "qwen-kernels")
+    target_shapes(by_shape, cass, torch.Generator(
+        device="cuda").manual_seed(args.seed + 18), "qwen-kernels",
+        args.requests * (cass.gamma + 1))
+    eng = main_phase(packed, cfg, cass, m["gen"], args, tag="qwen")
+    family_sched("qwen-sched", m, args, eng, "c1")
+    del m, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bitwise serving gates at 2 layers (full width)
+    m2 = family_setup("qwen-depth2", dataclasses.replace(cfg, n_layers=2),
+                      args.seed + 19)
+    prompt = torch.randint(0, cfg.vocab_size, (args.requests,
+                                               args.prompt_len),
+                           generator=m2["gen"], device="cuda").to(torch.int32)
+    bitwise_runs("qwen-depth2", m2["cfg"], m2["packed"], m2["cass"], prompt,
+                 args.max_new, [("on", {}), ("overlap off",
+                                              {"overlap": False}),
+                                ("alternating", {"fused": False})])
+    del m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[qwen] phase 16a in {time.perf_counter() - t0:.1f} s")
+    return {"err": err, "eng": eng}
+
+
+def moe_oracle_check(tag: str, m: dict, x, rt_extra: dict) -> float:
+    """The card's ``moe`` against ``moe_reference`` (a dense loop over the
+    experts) on the card, on layer 0 of the first routed group (a shared
+    expert in its target view), at a capacity that drops nothing: within
+    2^-7 of the output's scale (a few bf16 ulps; the combine sums the k
+    experts in another order). Returns the largest absolute
+    difference."""
+    import torch
+    from repro_torch.models import ffn as F
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import _index
+    cfg = m["cfg"]
+    rt = Runtime(cfg=cfg, cass=m["cass"], view="target", **rt_extra)
+    gi = next(i for i, g in enumerate(m["packed"]["dec"])
+              if "moe" in g["e0"])
+    p = _index(m["packed"]["dec"][gi]["e0"]["moe"], 0)
+    with torch.inference_mode():
+        out, aux = F.moe(rt, p, x)
+        ref = F.moe_reference(rt, p, x)
+        ms = cuda_ms(lambda: F.moe(rt, p, x), 3)
+        ref_ms = cuda_ms(lambda: F.moe_reference(rt, p, x), 1)
+    scale = float(ref.float().abs().max())
+    err = float((out.float() - ref.float()).abs().max())
+    say(f"[{tag}] moe vs moe_reference on the card, {tuple(x.shape)} "
+        f"tokens, capacity factor {rt.moe_capacity_factor:g}: max abs diff "
+        f"{err:.3g} (limit {2 ** -7 * max(scale, 1.0):.3g}), dropped "
+        f"{int(aux['dropped'])}; moe {ms:.2f} ms, the dense loop "
+        f"{ref_ms:.2f} ms (CUDA events)")
+    if int(aux["dropped"]) != 0 or not err <= 2 ** -7 * max(scale, 1.0):
+        fail(f"{tag}: moe differs from moe_reference by {err}")
+    return err
+
+
+def dbrx_phase(args) -> dict:
+    """Phase 16b: DBRX at full width cut to 2 layers (16 experts, top-4),
+    C-1 (γ=3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=2)
+    m = family_setup("dbrx", cfg, args.seed + 20)
+    cass, packed, extra = m["cass"], m["packed"], m["extra"]
+    e0, r = packed["dec"][0]["e0"], cfg.n_layers
+    by_shape = {"wq/wo": (e0["attn"]["wq"]["w"], 2 * r),
+                "wk/wv": (e0["attn"]["wk"]["w"], 2 * r),
+                "lm_head": (packed["lm_head"]["w"], 1)}
+    draft_shapes(by_shape, cass, torch.Generator(
+        device="cuda").manual_seed(args.seed + 21), "dbrx-kernels")
+    err = target_all_bitwise(packed, cass, "dbrx-kernels")
+    target_shapes(by_shape, cass, torch.Generator(device="cuda").manual_seed(
+        args.seed + 22), "dbrx-kernels", args.requests * (cass.gamma + 1))
+    x = (torch.randn((args.requests, CHUNK, cfg.d_model),
+                     generator=m["gen"], device="cuda") * 0.5).to(
+        torch.bfloat16)
+    moe_oracle_check("dbrx", m, x, extra)
+    with DropCounter() as drops:
+        eng = main_phase(packed, cfg, cass, m["gen"], args, tag="dbrx",
+                         rt_extra=extra)
+    say(f"[dbrx] Engine runs at capacity factor "
+        f"{extra['moe_capacity_factor']:g}: {drops.calls} MoE calls, "
+        f"dropped {drops.dropped}")
+    if drops.dropped:
+        fail(f"dbrx: {drops.dropped} tokens dropped at a capacity that "
+             f"cannot overflow")
+    dropped = family_sched("dbrx-sched", m, args, eng, "c1",
+                           rt_extra=extra)
+    runs = bitwise_runs("dbrx-sched", cfg, packed, cass, eng["prompt"],
+                        args.max_new, [("on", {}), ("overlap off",
+                                                     {"overlap": False}),
+                                       ("alternating", {"fused": False})],
+                        rt_extra=extra)
+    if dropped or any(d for _, d in runs.values()):
+        fail("dbrx-sched: tokens dropped at a capacity that cannot overflow")
+    # the reference's default capacity: overflow couples rows, so only
+    # the drops are reported, and how many tokens still agree
+    with DropCounter() as drops:
+        _, tokens, _, wall = serve_paged(cfg, packed, cass, eng["prompt"],
+                                         args.max_new, attn_kernel="on")
+    same = int((tokens == runs["on"][0]).sum())
+    say(f"[dbrx-sched] default capacity factor 1.25: {drops.calls} MoE "
+        f"calls dropped {drops.dropped} token assignments; tokens equal to "
+        f"the no-overflow run at {same} of {tokens.size} positions "
+        f"({wall:.1f} s)")
+    del m, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[dbrx] phase 16b in {time.perf_counter() - t0:.1f} s")
+    return {"err": err, "eng": eng}
+
+
+def deepseek_moe_phase(args) -> dict:
+    """Phase 16c: DeepSeek-V3 at full width cut to 4 layers (its 3 dense
+    layers and 1 routed layer: 256 experts, top-8, a shared expert), MLA,
+    C-1 (γ=3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
+    m = family_setup("ds-moe", cfg, args.seed + 23)
+    cass, packed, extra = m["cass"], m["packed"], m["extra"]
+    shared = packed["dec"][1]["e0"]["moe"]["shared"]
+    by_shape = {"shared gate/up": (shared["w_gate"]["w"], 2),
+                "shared down": (shared["w_down"]["w"], 1)}
+    draft_shapes(by_shape, cass, torch.Generator(
+        device="cuda").manual_seed(args.seed + 24), "ds-moe-kernels")
+    err = target_all_bitwise(packed, cass, "ds-moe-kernels")
+    target_shapes(by_shape, cass, torch.Generator(device="cuda").manual_seed(
+        args.seed + 25), "ds-moe-kernels", args.requests * (cass.gamma + 1))
+    x = (torch.randn((args.requests, cass.gamma + 1, cfg.d_model),
+                     generator=m["gen"], device="cuda") * 0.5).to(
+        torch.bfloat16)
+    moe_oracle_check("ds-moe", m, x, extra)
+    with DropCounter() as drops:
+        eng = main_phase(packed, cfg, cass, m["gen"], args, tag="ds-moe",
+                         rt_extra=extra)
+    say(f"[ds-moe] Engine runs at capacity factor "
+        f"{extra['moe_capacity_factor']:g}: {drops.calls} MoE calls, "
+        f"dropped {drops.dropped}")
+    if drops.dropped:
+        fail(f"ds-moe: {drops.dropped} tokens dropped at a capacity that "
+             f"cannot overflow")
+    family_sched("ds-moe-sched", m, args, eng, "mla", rt_extra=extra)
+    del m, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[ds-moe] phase 16c in {time.perf_counter() - t0:.1f} s")
+    return {"err": err, "eng": eng}
+
+
+# ---------------------------------------------------------------------------
 
 def run(args) -> None:
     import torch
@@ -3498,8 +3887,21 @@ def run(args) -> None:
     del mla
     gc.collect()
     torch.cuda.empty_cache()
+    # 16. the dense GQA family and top-k MoE: qwen3-4b at full width, DBRX
+    # (2 layers) and DeepSeek-V3 (3 dense + 1 routed layer) at full width
+    t0 = time.perf_counter()
+    fam = {"qwen": qwen_phase(args), "dbrx": dbrx_phase(args),
+           "ds-moe": deepseek_moe_phase(args)}
+    say(f"[family] phase 16 in {time.perf_counter() - t0:.1f} s; launches "
+        f"of the Engine runs: " + "; ".join(
+            f"{k} {v['eng']['launches']} draft_matmul, "
+            f"{v['eng']['codec']['target_decode']} target_decode, "
+            f"{v['eng']['codec']['kv_view']} kv_view, "
+            f"{v['eng']['codec']['kv_encode']} kv_encode"
+            for k, v in fam.items()))
+    td_err = max([td_err] + [v["err"] for v in fam.values()])
 
-    # 16. report
+    # 17. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
         '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
         '"target_decode", "mx_view", "kv_encode", "kv_view"]')

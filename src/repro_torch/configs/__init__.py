@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-The port knows the paper's primary model and deepseek-v3-671b (MLA; its
-routed-expert layers raise until MoE is ported); the other families join
-with their ROADMAP Queue 1 slices. ``smoke=True`` returns the reduced
-same-family config the CPU tests use.
+The port knows the paper's two models (llama3-8b, qwen3-4b), the dense
+GQA family (qwen3-1.7b, qwen2.5-3b, nemotron-4-15b, mistral-large-123b)
+and the MoE models (dbrx-132b, deepseek-v3-671b with MLA). The SSM,
+encoder-decoder and frontend families join with ROADMAP Queue 1 item 5.
+``smoke=True`` returns the reduced same-family config the CPU tests use.
 """
 from __future__ import annotations
 
@@ -16,8 +17,15 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = {
-    "llama3-8b": "llama3_8b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "mistral-large-123b": "mistral_large_123b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "dbrx-132b": "dbrx_132b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    # the paper's own evaluation models
+    "llama3-8b": "llama3_8b",
+    "qwen3-4b": "qwen3_4b",
 }
 
 
@@ -25,6 +33,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port knows "
                        f"{sorted(_MODULES)} (other families: ROADMAP "
-                       "Queue 1 step 9)")
+                       "Queue 1 item 5)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.SMOKE if smoke else mod.CONFIG

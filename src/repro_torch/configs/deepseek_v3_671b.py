@@ -3,9 +3,9 @@ multi-token prediction. [arXiv:2412.19437; hf:deepseek-ai/DeepSeek-V3]
 
 d_ff=18432 is the dense FFN of the first 3 layers; moe_d_ff=2048 the
 routed experts'. MLA caches the 512-d latent ``c`` and the 64-d rope key
-``kr`` per token; Cassandra's per-token KV pruning acts on both. The port
-serves the layers without routed experts (``first_dense_layers``): MoE
-is ROADMAP Queue 1, so the full depth raises.
+``kr`` per token; Cassandra's per-token KV pruning acts on both. The
+routed layers run ``models.ffn.moe`` (the routed experts and the router
+stay unpacked, as in the reference); serving ignores the MTP head.
 """
 from repro_torch.configs.base import ModelConfig
 

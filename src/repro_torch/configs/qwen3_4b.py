@@ -1,0 +1,16 @@
+"""qwen3-4b — the paper's Qwen3-4B-Thinking-2507 model. [hf:Qwen/Qwen3-4B]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b", family="dense",
+    n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, d_ff=9728,
+    vocab_size=151_936, head_dim=128, qk_norm=True, ffn_act="swiglu",
+    rope_theta=1_000_000.0, norm_eps=1e-6, tie_embeddings=True,
+)
+
+SMOKE = ModelConfig(
+    name="qwen3-4b-smoke", family="dense",
+    n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+    vocab_size=512, head_dim=64, qk_norm=True, ffn_act="swiglu",
+    norm_eps=1e-6, tie_embeddings=True,
+)

@@ -5,7 +5,9 @@
 weight with its packed ``{"spec", "verif"}`` partition; embeddings, norms
 and biases stay full precision. Stacked (R, in, out) weights are packed
 layer by layer and their leaves stacked back along R, as the reference's
-``vmap`` does.
+``vmap`` does. As in the reference, only 2-D and 3-D leaves pack: MoE
+experts, stacked (R, E, in, out), stay plain bf16, the router (under
+``router``) stays f32, and a shared expert packs like a dense MLP.
 
 Unlike the reference, which rebuilds the draft kernel's operands inside
 every draft matmul, ``format_params`` then prepares them once

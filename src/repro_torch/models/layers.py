@@ -39,6 +39,11 @@ class Runtime:
     ``collector`` is a calibration stats collector (``packing.Calibrator``):
     ``dense`` and ``unembed`` hand it each product's input, keyed by the
     weight's path.
+
+    ``moe_capacity_factor`` sizes each expert's slots against a perfectly
+    balanced router (``ffn.moe_capacity``). At ``n_experts /
+    n_experts_per_tok`` or more no token is ever dropped, so no row's
+    output depends on what else rides in its batch.
     """
     cfg: ModelConfig
     cass: CassandraConfig | None = None
@@ -47,6 +52,7 @@ class Runtime:
     attn_kernel: str = "off"            # off | on
     attn_chunk_q: int = 1024
     attn_chunk_k: int = 1024
+    moe_capacity_factor: float = 1.25   # per-expert slots vs perfect balance
 
 
 def is_packed(w) -> bool:
@@ -99,7 +105,7 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 def norm(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
     if "bias" in p:
         raise NotImplementedError("layernorm belongs to the encoder-decoder "
-                                  "slice: ROADMAP Queue 1 step 9")
+                                  "slice: ROADMAP Queue 1 item 5")
     return rmsnorm(p, x, rt.cfg.norm_eps)
 
 
@@ -143,3 +149,26 @@ def unembed(rt: Runtime, params: dict, x: torch.Tensor) -> torch.Tensor:
             rt.collector.observe("lm_head", x)
         return torch.matmul(x, w.to(x.dtype)).to(torch.float32)
     return dense(rt, params["lm_head"], x, "lm_head").to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(torch.relu(x))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    if name == "swiglu":  # handled by ffn (gated)
+        return torch.nn.functional.silu
+    if name == "relu2":
+        return _relu2
+    if name == "gelu":
+        return _gelu
+    raise ValueError(f"unknown activation {name}")

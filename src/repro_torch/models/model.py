@@ -11,12 +11,16 @@ of ``models/model.py``).
 
 Parameters keep the reference's tree: stacked ``(R, …)`` leaves per layer
 group, ``(in, out)`` weights. The reference's ``lax.scan`` over R is a
-Python loop here (``_scan_groups``). MLA (deepseek) runs in the layers
-before its first routed-expert layer (``first_dense_layers``); MoE, SSM and
-encoder-decoder models are ROADMAP Queue 1, training (the loss and its
-backward) too. Multi-token
-prediction heads (``mtp_depth``) feed only the reference's training loss,
-so serving neither builds nor reads them.
+Python loop here (``_scan_groups``). A block's attention is GQA (with
+``qk_norm`` / ``qkv_bias`` where the config says) or MLA (deepseek); its
+FFN is a dense MLP (``'m'``: SwiGLU, squared-ReLU or GELU) or top-k MoE
+(``'M'``, ``ffn.moe``; deepseek's first ``first_dense_layers`` are
+dense). The MoE aux (drops, balance loss) is summed over the blocks;
+``forward_train`` returns it and serving ignores it, as in the
+reference. SSM, encoder-decoder and frontend models are ROADMAP Queue 1
+item 5, training (the loss and its backward) too. Multi-token prediction
+heads (``mtp_depth``) feed only the reference's training loss, so serving
+neither builds nor reads them.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KC
 
 Params = dict
-_FAMILY = ("the port covers dense-FFN decoders with GQA or MLA attention; "
-           "{what} is ROADMAP Queue 1")
+_FAMILY = ("the port covers decoders with GQA or MLA attention and dense or "
+           "MoE FFNs; {what} is ROADMAP Queue 1 item 5")
 # The reference fails on this combination too (paged_gqa_packed reads the
 # Cassandra-1 exponent leaves: KeyError 'exp_words'); neither package has a
 # Cassandra-2 packed attention kernel.
@@ -47,18 +51,18 @@ C2_PACKED_ATTN = (
 # ---------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run. A config with experts runs
-    only when every layer is one of its ``first_dense_layers`` (deepseek-
-    v3 cut to its first 3 layers); ``mtp_depth`` is ignored (training
-    only)."""
-    routed = cfg.n_experts and cfg.n_layers > cfg.first_dense_layers
-    for what, off in (("MoE (routed-expert layers)", routed),
-                      ("SSM", cfg.sub_quadratic), ("enc-dec", cfg.is_encdec),
+    """Raise for what the port does not run: SSM mixers, encoder-decoder
+    models, modality frontends and the audio family. ``mtp_depth`` is
+    ignored (training only)."""
+    for what, off in (("SSM", cfg.sub_quadratic), ("enc-dec", cfg.is_encdec),
                       ("a modality frontend", cfg.frontend),
-                      ("a non-SwiGLU FFN", cfg.ffn_act != "swiglu"),
                       ("the audio family", cfg.family == "audio")):
         if off:
             raise NotImplementedError(_FAMILY.format(what=what))
+
+
+def cfg_has_moe(cfg: ModelConfig) -> bool:
+    return any(e[1] == "M" for e in cfg.block_pattern)
 
 
 def _normal(gen, shape, std, dtype, device):
@@ -100,14 +104,60 @@ def _init_mla(gen, r: int, cfg: ModelConfig, dtype, device, ones) -> dict:
     }
 
 
+def _init_mlp(gen, r: int, cfg: ModelConfig, d_ff: int, dtype,
+              device) -> dict:
+    """The reference's ``_init_mlp``: up and down projections, and a gate
+    for SwiGLU."""
+    p = {"w_up": _dense_init(gen, r, cfg.d_model, d_ff, dtype, device),
+         "w_down": _dense_init(gen, r, d_ff, cfg.d_model, dtype, device,
+                               std=d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5)}
+    if cfg.ffn_act == "swiglu":
+        p["w_gate"] = _dense_init(gen, r, cfg.d_model, d_ff, dtype, device)
+    return p
+
+
+def _experts_init(gen, r: int, e: int, n_in: int, n_out: int, dtype,
+                  device, std=None) -> dict:
+    """Stacked (R, E, n_in, n_out) expert weights, drawn one expert at a
+    time into the preallocated tensor (no f32 copy of the stack)."""
+    std = std if std is not None else n_in ** -0.5
+    w = torch.empty((r, e, n_in, n_out), dtype=dtype, device=device)
+    for ri in range(r):
+        for ei in range(e):
+            w[ri, ei] = _normal(gen, (n_in, n_out), std, dtype, device)
+    return {"w": w}
+
+
+def _init_moe(gen, r: int, cfg: ModelConfig, dtype, device) -> dict:
+    """The reference's ``_init_moe`` tree: an f32 router, the experts
+    stacked along E (per layer: (E, in, out)) and the optional shared
+    expert, a dense MLP ``n_shared_experts`` experts wide."""
+    e, ff, d = cfg.n_experts, cfg.expert_ff, cfg.d_model
+    experts = {
+        "w_up": _experts_init(gen, r, e, d, ff, dtype, device),
+        "w_down": _experts_init(gen, r, e, ff, d, dtype, device,
+                                std=ff ** -0.5 / (2 * cfg.n_layers) ** 0.5)}
+    if cfg.ffn_act == "swiglu":
+        experts["w_gate"] = _experts_init(gen, r, e, d, ff, dtype, device)
+    p = {"router": {"w": _normal(gen, (r, d, e), 0.02, torch.float32,
+                                 device)},
+         "experts": experts}
+    if cfg.n_shared_experts:
+        p["shared"] = _init_mlp(gen, r, cfg, ff * cfg.n_shared_experts,
+                                dtype, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda") -> Params:
     """Random weights with the reference's distributions (``model.py``
     ``_dense_init``/``init_params``): N(0, 1/n_in) projections, output
     projections scaled by 1/sqrt(2·n_layers), N(0, 0.02²) embedding and
-    lm_head, unit norms. Draws come from ``generator`` (on ``device``),
-    one layer at a time, so no full-depth f32 tensor ever exists. The
-    tree is the reference's without its ``mtp`` head (training only)."""
+    lm_head, unit norms; MoE blocks an N(0, 0.02²) f32 router and experts
+    as ``_init_moe``. Draws come from ``generator`` (on ``device``), one
+    layer (an expert) at a time, so no full-depth f32 tensor ever exists.
+    The tree is the reference's without its ``mtp`` head (training
+    only)."""
     _check_dense(cfg)
     hd = cfg.hd
     ones = lambda r, d: {"scale": torch.ones((r, d), dtype=torch.float32,
@@ -116,7 +166,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for g in layer_groups(cfg):
         r = g.repeats
         gdict = {}
-        for j, _entry in enumerate(g.entries):
+        for j, kind in enumerate(g.entries):
             if cfg.mla:
                 attn = _init_mla(generator, r, cfg, dtype, device, ones)
             else:
@@ -138,18 +188,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 if cfg.qk_norm:
                     attn["q_norm"] = ones(r, hd)
                     attn["k_norm"] = ones(r, hd)
-            ffn = {
-                "w_up": _dense_init(generator, r, cfg.d_model, cfg.d_ff,
-                                    dtype, device),
-                "w_down": _dense_init(generator, r, cfg.d_ff, cfg.d_model,
-                                      dtype, device,
-                                      std=cfg.d_ff ** -0.5
-                                      / (2 * cfg.n_layers) ** 0.5),
-                "w_gate": _dense_init(generator, r, cfg.d_model, cfg.d_ff,
-                                      dtype, device),
-            }
-            gdict[f"e{j}"] = {"norm1": ones(r, cfg.d_model), "attn": attn,
-                              "ffn": ffn, "norm2": ones(r, cfg.d_model)}
+            entry = {"norm1": ones(r, cfg.d_model), "attn": attn}
+            if kind[1] == "m":
+                entry["ffn"] = _init_mlp(generator, r, cfg, cfg.d_ff, dtype,
+                                         device)
+            elif kind[1] == "M":
+                entry["moe"] = _init_moe(generator, r, cfg, dtype, device)
+            if kind[1] in "mM":
+                entry["norm2"] = ones(r, cfg.d_model)
+            gdict[f"e{j}"] = entry
         dec.append(gdict)
     params: Params = {
         "embed": {"table": _normal(generator, (cfg.vocab_size, cfg.d_model),
@@ -281,7 +328,8 @@ def _block(rt: Runtime, bp: dict, entry: str, x, positions, *, mode,
            causal=True, centry=None, scratch=None, length=None,
            scratch_len=None, book=None, s_max=0, ventry=None, table=None,
            suffix_from=None):
-    """One transformer block. Returns (x, cache_update)."""
+    """One transformer block. Returns (x, cache_update, moe_aux): the aux
+    of an ``'M'`` block (``ffn.moe``), None for any other."""
     h = L.norm(rt, bp["norm1"], x)
     out, kv_upd = _attn_entry(rt, bp, h, positions, causal=causal,
                               centry=centry, scratch=scratch, length=length,
@@ -290,9 +338,25 @@ def _block(rt: Runtime, bp: dict, entry: str, x, positions, *, mode,
                               suffix_from=suffix_from)
     upd = dict(kv_upd) if mode in ("decode", "prefill") else {}
     x = x + out
-    h = L.norm(rt, bp["norm2"], x)
-    x = x + F.mlp(rt, bp["ffn"], h)
-    return x, upd
+    aux = None
+    if entry[1] == "m":
+        h = L.norm(rt, bp["norm2"], x)
+        x = x + F.mlp(rt, bp["ffn"], h)
+    elif entry[1] == "M":
+        h = L.norm(rt, bp["norm2"], x)
+        out, aux = F.moe(rt, bp["moe"], h)
+        x = x + out
+    return x, upd, aux
+
+
+def _add_aux(total: dict, aux: dict) -> dict:
+    """The reference's running aux: balance loss in f32, drops in int32."""
+    bl = aux["balance_loss"].to(torch.float32)
+    dropped = aux["dropped"].to(torch.int32)
+    if not total:
+        return {"balance_loss": bl, "dropped": dropped}
+    return {"balance_loss": total["balance_loss"] + bl,
+            "dropped": total["dropped"] + dropped}
 
 
 def _index(tree, r: int):
@@ -321,8 +385,10 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                  suffix_from=None):
     """Run all layer groups; a loop over the repeats R of each group.
 
-    Returns (x, updates_groups) with updates stacked along R like the
-    reference's scan outputs."""
+    Returns (x, aux, updates_groups): updates stacked along R like the
+    reference's scan outputs, aux the MoE blocks' summed aux ({} without
+    one)."""
+    aux = {}
     updates_groups = []
     for gi, entries in enumerate(entries_per_group):
         gp = groups_params[gi]
@@ -337,7 +403,7 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                 pick = lambda grp: (_index(grp[gi][ekey], r)
                                     if grp is not None and ekey in grp[gi]
                                     else None)
-                x, upd = _block(
+                x, upd, baux = _block(
                     rt, _index(gp[ekey], r), entry, x, positions, mode=mode,
                     causal=causal, centry=pick(cache_groups),
                     scratch=pick(scratch_groups), length=length,
@@ -346,11 +412,13 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                     suffix_from=suffix_from)
                 if upd:
                     g_upd[ekey] = upd
+                if baux is not None:
+                    aux = _add_aux(aux, baux)
             per_layer.append(g_upd)
         updates_groups.append(_stack_updates(per_layer))
     if rt.collector is not None:
         rt.collector.layer(None)
-    return x, updates_groups
+    return x, aux, updates_groups
 
 
 def _entries(cfg: ModelConfig):
@@ -364,16 +432,23 @@ def _entries(cfg: ModelConfig):
 def forward_train(rt: Runtime, params: Params, batch: dict):
     """Full-sequence pass with no cache (the reference's ``forward_train``
     forward; the loss and its backward belong to the training slice).
-    Returns (logits (B,S,V) f32, aux). With
-    ``rt.collector`` set it is the Wanda calibration forward."""
+    Returns (logits (B,S,V) f32, aux): aux holds the MoE blocks' summed
+    ``balance_loss`` (f32) and ``dropped`` (int32), zeros without one, as
+    the reference's. With ``rt.collector`` set it is the Wanda calibration
+    forward."""
     cfg = rt.cfg
     _check_dense(cfg)
     x = L.embed(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _scan_groups(rt, params["dec"], _entries(cfg), x, positions,
-                        mode="train")
+    x, aux, _ = _scan_groups(rt, params["dec"], _entries(cfg), x, positions,
+                             mode="train")
+    if not aux:
+        aux = {"balance_loss": torch.zeros((), dtype=torch.float32,
+                                           device=x.device),
+               "dropped": torch.zeros((), dtype=torch.int32,
+                                      device=x.device)}
     x = L.norm(rt, params["final_norm"], x)
-    return L.unembed(rt, params, x), {}
+    return L.unembed(rt, params, x), aux
 
 
 def forward_prefill(rt: Runtime, params: Params, batch: dict, cache: dict):
@@ -385,8 +460,8 @@ def forward_prefill(rt: Runtime, params: Params, batch: dict, cache: dict):
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     book = KC.cache_codebook(cache)
-    x, upd = _scan_groups(rt, params["dec"], _entries(cfg), x, positions,
-                          mode="prefill")
+    x, _, upd = _scan_groups(rt, params["dec"], _entries(cfg), x, positions,
+                             mode="prefill")
     cache = _commit_prefill(rt, cache, upd, s, book)
     x = L.norm(rt, params["final_norm"], x[:, -1:])
     return L.unembed(rt, params, x), cache
@@ -459,7 +534,7 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
         positions = length + slen + ar
     x = L.embed(params["embed"], tokens)
     book = KC.cache_codebook(cache)
-    x, upd = _scan_groups(
+    x, _, upd = _scan_groups(
         rt, params["dec"], _entries(cfg), x, positions, mode="decode",
         cache_groups=cache["dec"], scratch_groups=scratch, length=length,
         scratch_len=slen, book=book, s_max=_cache_s_max(cfg, cache),

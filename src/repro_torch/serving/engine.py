@@ -472,7 +472,11 @@ def scatter_tokens(buf: torch.Tensor, count: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Engine:
-    """Prefill once, then speculative (or autoregressive) cycles."""
+    """Prefill once, then speculative (or autoregressive) cycles.
+
+    ``rt_extra`` sets further ``Runtime`` fields (the flash chunks; MoE's
+    ``moe_capacity_factor``); the MoE aux is ignored, as in the
+    reference."""
 
     def __init__(self, cfg: ModelConfig, params,
                  cass: CassandraConfig | None = None,

@@ -274,7 +274,12 @@ def _masked_unified(rt: Runtime, params, cache: dict, cur, chunk_tokens,
 
 
 class Scheduler:
-    """Continuous-batching front end over the speculative decode step."""
+    """Continuous-batching front end over the speculative decode step.
+
+    ``rt_extra`` sets further ``Runtime`` fields (the flash chunks; MoE's
+    ``moe_capacity_factor``: capacity overflow couples the rows of a step,
+    so the bitwise serving paths agree only where nothing is dropped, as
+    in the reference). The MoE aux is ignored, as in the reference."""
 
     def __init__(self, cfg: ModelConfig, params,
                  cass: CassandraConfig | None = None,

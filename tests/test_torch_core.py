@@ -167,6 +167,30 @@ def test_format_weight_leaves_and_decodes(shape, outliers):
     TP.assert_bitwise(target, w)                            # lossless
 
 
+def test_c1_delta_regions_are_exact_within_20_binades():
+    """A reference behaviour the port reproduces: a mode-1 (delta) exponent
+    region stores each exponent as a 3-bit code below the region's max
+    plus a 4-bit correction, so it is exact only within 20 binades below
+    that max; an exponent further below decodes as max − 20. Two mode-1
+    columns each get one kept-or-pruned value 2^24 and 2^34 times below
+    its region's largest: both packages' target views lose exactly those
+    two values, bit for bit alike, and keep every other value."""
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal((512, 8)).astype(np.float32)
+    w[:, :2] *= np.exp2(rng.integers(-6, 7, (512, 2)))   # forces mode 1
+    w[7, 0], w[9, 1] = 2.0 ** -30, 2.0 ** -40
+    w = np.array(jnp.asarray(w, jnp.bfloat16))
+    jspec_, jverif = jfmt.format_weight(jnp.asarray(w), None, JCASS)
+    spec, verif = fmt.format_weight(_t(w), None, CASS)
+    assert np.asarray(jspec_["exp_mode"])[:2].all()
+    target = fmt.target_weight(spec, verif, CASS, w.shape)
+    TP.assert_bitwise(target, jfmt.target_weight(jspec_, jverif, JCASS,
+                                                  w.shape))
+    lost = np.argwhere(TP.bits(target) != TP.bits(w))
+    assert lost.tolist() == [[7, 0], [9, 1]]
+    np.testing.assert_array_equal(TP.f32(target)[7, 0], 2.0 ** -23)
+
+
 def test_target_weight_row_chunks(monkeypatch):
     rng = np.random.default_rng(7)
     w = TP.outlier_bf16_np(rng, (256, 80))

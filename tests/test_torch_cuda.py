@@ -1597,3 +1597,192 @@ def test_sampled_engine_and_scheduler_seeds_on_card(card):
     a = serve(7, True)
     assert a == serve(7, True) == serve(7, False)
     assert a != serve(8, True)
+
+
+# ---------------------------------------------------------------------------
+# The dense GQA family and top-k MoE: the kernels at their shapes and
+# groups, MoE on the card, the Engine and the paged Scheduler
+# ---------------------------------------------------------------------------
+
+# (in, out) of draft products no other card test covers: qwen3-4b's five
+# (wq 2560 -> 4096, wo 4096 -> 2560), DBRX's attention and lm_head,
+# DeepSeek-V3's shared expert, qwen2.5-3b's wk (2 KV heads) and
+# mistral-large-123b's up projection
+FAMILY_SHAPES = [(2560, 4096), (2560, 1024), (2560, 9728), (9728, 2560),
+                 (4096, 2560), (6144, 6144), (6144, 1024), (6144, 100352),
+                 (7168, 2048), (2048, 7168), (2048, 256), (12288, 28672)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES)
+def test_draft_matmul_at_the_families_shapes_on_card(card, n_in, n_out):
+    """The main path's plan at M = 4 (a decode batch) and 16 (a verify
+    pass): y within rtol 2e-2 / atol 1e-3 of the plain version, the
+    decoded weight bit for bit through identity rows."""
+    args, kw = _card_operands((n_in, n_out), card, 4)
+    gen = torch.Generator(device=card).manual_seed(n_in + n_out)
+    for m in (4, 16):
+        x = torch.randn((m, n_in), generator=gen, device=card).to(
+            torch.bfloat16)
+        y = DM.draft_matmul(x, *args, **kw)
+        torch.testing.assert_close(y, DM.draft_matmul_plain(x, *args, **kw),
+                                   rtol=2e-2, atol=1e-3)
+    eye = torch.eye(n_in, dtype=torch.bfloat16, device=card)
+    w = DM.draft_matmul(eye, *args, **kw).to(torch.bfloat16)
+    del eye
+    assert torch.equal(w.view(torch.int16), DM.draft_weight_plain(
+        *args, **kw).contiguous().view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES)
+def test_target_decode_at_the_families_shapes_on_card(card, n_in, n_out):
+    """Bit for bit the plain chain, mode-1 superblocks included, and the
+    weight itself wherever the format is exact: a mode-1 region holds an
+    exponent exactly only within 20 binades below its max (3-bit code +
+    4-bit correction, as the reference's; ``tests/test_torch_core.py::
+    test_c1_delta_regions_are_exact_within_20_binades``), and the
+    outlier columns' 2^±6 spread can put a value past it."""
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import unary_decode as UD
+    w, spec, verif, cass = _target_weight((n_in, n_out), card)
+    got = UD.target_decode(spec, verif, cass, (n_in, n_out))
+    want = fmt.target_weight_plain(spec, verif, cass, (n_in, n_out)).T
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    wt = w.T.contiguous().view(torch.int16)
+    lost = got.view(torch.int16) != wt
+    exps = (wt.to(torch.int32) >> 7) & 0xFF
+    block = cass.weight_block(n_in)
+    emax = exps.reshape(n_out, -1, block).amax(-1).repeat_interleave(
+        block, -1)
+    assert bool(((emax - exps)[lost] > 20).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("hkv,g", [(8, 6), (2, 8), (8, 12), (8, 2)])
+def test_paged_kernels_at_the_families_groups_on_card(card, t, hkv, g):
+    """``paged_gqa`` and ``paged_gqa_packed`` at the query groups of DBRX
+    and nemotron (6), qwen2.5-3b (8 over 2 KV heads), mistral (12) and
+    qwen3-1.7b (2), head dim 128: (acc, m, l) within rtol 1e-4 / atol 1e-5
+    of the plain versions, the empty row exactly initial."""
+    from repro_torch.kernels import paged_attention as PA
+    q, k, v, ks, vs, table, length, eor, kw = _paged_inputs(
+        card, d=128, t=t, bs=16, seed=t * 13 + g, hkv=hkv, g=g)
+    scale = 128 ** -0.5
+    got = PA.paged_gqa(q, k, v, table, length, scale=scale)
+    want = PA.paged_gqa_plain(q, k, v, table, length, scale=scale)
+    got_p = PA.paged_gqa_packed(q, ks, vs, table, length, eor, scale=scale,
+                                **kw)
+    want_p = PA.paged_gqa_packed_plain(q, ks, vs, table, length, eor,
+                                       scale=scale, **kw)
+    torch.cuda.synchronize()
+    for a, b in list(zip(got, want)) + list(zip(got_p, want_p)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert (got[0][1] == 0).all() and (got[1][1] == PA.NEG_INF).all()
+    assert got[0].shape == (4, hkv, g, t, 128)
+
+
+def _moe_smoke(card, arch):
+    """SMOKE with its routed layers (DeepSeek-V3's rope widened to 32 so
+    its caches pack), C-1, random weights on the card."""
+    import dataclasses
+    cfg = get_config(arch, smoke=True)
+    if cfg.mla:
+        cfg = dataclasses.replace(cfg, qk_rope_dim=32)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device=card).manual_seed(4)
+    plain = init_params(cfg, gen, device=card)
+    return cfg, cass, plain, format_params(plain, cass), gen
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.25, None])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_moe_on_card_matches_cpu(card, arch, factor):
+    """One routed layer on the card against the same layer on the CPU, on
+    tokens sharing one direction (a skewed router): ``dropped`` and
+    ``load`` exactly (drops at 1.25, none at n_experts / k), the output
+    within a few bf16 ulps (cuBLAS sums in another order); on the card
+    ``moe`` against ``moe_reference`` at the no-drop capacity likewise."""
+    from repro_torch.models import ffn as F
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import _index
+    cfg, _, plain, _, gen = _moe_smoke(card, arch)
+    if factor is None:
+        factor = cfg.n_experts / cfg.n_experts_per_tok
+    rt = Runtime(cfg=cfg, moe_capacity_factor=factor)
+    p = _index(plain["dec"][-1]["e0"]["moe"], 0)
+    x = (torch.randn((4, 6, cfg.d_model), generator=gen, device=card)
+         + 2 * torch.randn((cfg.d_model,), generator=gen, device=card)).to(
+        torch.bfloat16)
+    out, aux = F.moe(rt, p, x)
+    out_c, aux_c = F.moe(rt, _tree_to(p, "cpu"), x.cpu())
+    assert int(aux["dropped"]) == int(aux_c["dropped"])
+    assert (int(aux["dropped"]) > 0) == (factor == 1.25)
+    assert torch.equal(aux["load"].cpu(), aux_c["load"])
+    scale = float(out_c.float().abs().max())
+    torch.testing.assert_close(out.float().cpu(), out_c.float(), rtol=0,
+                               atol=2 ** -7 * max(scale, 1.0))
+    if factor != 1.25:
+        ref = F.moe_reference(rt, p, x)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=2 ** -7 * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "dbrx-132b",
+                                  "deepseek-v3-671b"])
+def test_family_engine_and_scheduler_on_card(card, arch):
+    """qwen3-4b (tied lm_head, qk_norm), DBRX and DeepSeek-V3 with their
+    routed layers at SMOKE width, C-1, MoE at a capacity that never
+    overflows: the Engine's speculative tokens equal autoregressive steps
+    at the verify width on every position, ``draft_matmul`` launched once
+    per packed matrix per draft pass (MLA's kv_b aside: its draft view is
+    decoded by ``unary_decode``); the paged Scheduler with the attention
+    kernels on gives the same tokens with fused == alternating and overlap
+    on == off."""
+    from repro_torch.core.packing import packed_paths
+    from repro_torch.serving.scheduler import Scheduler
+    cfg, cass, _, packed, gen = _moe_smoke(card, arch)
+    extra = ({"moe_capacity_factor": cfg.n_experts / cfg.n_experts_per_tok}
+             if cfg.n_experts else {})
+    prompt = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
+                           device=card).to(torch.int32)
+    eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=3),
+                 device=card, rt_extra=extra)
+    per_pass = 0                      # packed matrices, a layer each
+    for path in packed_paths(packed):
+        node = packed
+        for part in path.replace("[", ".").replace("]", "").split("."):
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        bm = node["w"]["spec"]["bitmap"]
+        if not path.endswith("kv_b"):
+            per_pass += bm.shape[0] if bm.ndim == 4 else 1
+    DM.draft_matmul.launches = 0
+    spec, st = eng.generate({"tokens": prompt}, max_new=12)
+    assert DM.draft_matmul.launches == st["draft_passes"] * per_pass
+    assert AR.verify_gap(eng, prompt, 3, 4) == 0.0
+    toks, _ = AR.ar_steps(eng, prompt, 12, 4)
+    assert torch.equal(spec[:, :12].cpu(), toks.cpu())
+    outs = {}
+    for name, kw in (("fused", {}), ("alt", {"fused": False}),
+                     ("sync", {"overlap": False})):
+        sched = Scheduler(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=3),
+                          num_slots=3, s_max=48, paged=True, block_size=4,
+                          chunk_size=8, attn_kernel="on", rt_extra=extra,
+                          device=card, **kw)
+        reqs = [sched.submit(p, max_new=10) for p in prompt.cpu().numpy()]
+        sched.run()
+        assert all(len(r.output) == 10 for r in reqs)
+        outs[name] = [r.output for r in reqs]
+    assert outs["fused"] == outs["alt"] == outs["sync"]

@@ -2,8 +2,9 @@
 
 * ``draft_matmul``: the planner's CTAs (32 output columns x a range of
   superblocks x a tile of rows) cover every (row, column, superblock) of a
-  product exactly once, for every main-path shape of Llama-3-8B and
-  DeepSeek-V3 and for ragged ones, and a plan split along K sums to the
+  product exactly once, for every draft-product shape of the registered
+  models at full width (Llama-3-8B, the dense GQA family, DBRX,
+  DeepSeek-V3) and for ragged ones, and a plan split along K sums to the
   unsplit product within the kernel's tolerance.
 * ``paged_gqa_packed``: the table split of the flash-decoding kernel, in
   plain torch (each chunk's flash state merged in chunk order), equals the
@@ -32,19 +33,41 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.serving import kvcache as KC
 
 
+def _gqa_shapes(cfg):
+    """(in, out) of a GQA model's packed draft products: attention, the
+    dense FFN (a gate only for SwiGLU, same shape as up), a shared
+    expert's, and lm_head unless the embedding is tied (then the unembed
+    is the bf16 table, never packed). Routed experts are never packed."""
+    d, hd = cfg.d_model, cfg.hd
+    shapes = {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+              (cfg.n_heads * hd, d)}
+    if "m" in "".join(e[1] for e in cfg.block_pattern) or \
+            cfg.first_dense_layers:
+        shapes |= {(d, cfg.d_ff), (cfg.d_ff, d)}
+    if cfg.n_shared_experts:
+        ff = cfg.expert_ff * cfg.n_shared_experts
+        shapes |= {(d, ff), (ff, d)}
+    if not cfg.tie_embeddings:
+        shapes.add((d, cfg.vocab_size))
+    return shapes
+
+
 def _main_path_shapes():
-    """(in, out) of every draft product of both models at full width."""
-    llama = get_config("llama3-8b")
-    d, f, hd = llama.d_model, llama.d_ff, llama.hd
-    shapes = {(d, llama.n_heads * hd), (d, llama.n_kv_heads * hd), (d, f),
-              (f, d), (llama.n_heads * hd, d), (d, llama.vocab_size)}
+    """(in, out) of every draft product of the registered models at full
+    width: Llama-3-8B, the dense GQA family, DBRX (attention and lm_head;
+    its experts stay plain) and DeepSeek-V3 (MLA, its dense FFN and the
+    routed layers' shared expert)."""
+    shapes = set()
+    for arch in ("llama3-8b", "qwen3-4b", "qwen3-1.7b", "qwen2.5-3b",
+                 "nemotron-4-15b", "mistral-large-123b", "dbrx-132b"):
+        shapes |= _gqa_shapes(get_config(arch))
     ds = get_config("deepseek-v3-671b")
     d = ds.d_model
     shapes |= {(d, ds.q_lora_rank),
                (ds.q_lora_rank, ds.n_heads * (ds.qk_nope_dim + ds.qk_rope_dim)),
                (d, ds.kv_lora_rank + ds.qk_rope_dim),
                (ds.n_heads * ds.v_head_dim, d), (d, ds.d_ff), (ds.d_ff, d),
-               (d, ds.vocab_size)}
+               (d, ds.expert_ff), (ds.expert_ff, d), (d, ds.vocab_size)}
     return sorted(shapes)
 
 
@@ -66,10 +89,19 @@ def _coverage(m, n, nb):
 
 
 def test_main_path_shapes_are_the_models():
-    # 5 Llama shapes (wq and wo are both 4096 x 4096), 7 DeepSeek-V3 ones
-    # (MLA kv_a is 512 + 64 = 576 wide)
-    assert len(MAIN_SHAPES) == 12
+    # 5 Llama shapes (wq and wo are both 4096 x 4096), 9 DeepSeek-V3 ones
+    # (MLA kv_a is 512 + 64 = 576 wide; the shared expert 7168 <-> 2048),
+    # qwen3-4b's 5 (n_heads x hd = 4096 != d_model 2560; tied: no
+    # lm_head), qwen3-1.7b's 4, qwen2.5-3b's 3 new (wk/wv 2048 -> 256),
+    # nemotron-4-15b's 5 (relu2: up and down), mistral-large-123b's 5 and
+    # DBRX's lm_head (its attention shapes are nemotron's)
+    assert len(MAIN_SHAPES) == 37
     assert (7168, 576) in MAIN_SHAPES and (4096, 1024) in MAIN_SHAPES
+    assert {(2560, 4096), (2560, 1024), (2560, 9728), (9728, 2560),
+            (4096, 2560)} <= set(MAIN_SHAPES)
+    assert {(6144, 6144), (6144, 1024), (6144, 100352), (7168, 2048),
+            (2048, 7168)} <= set(MAIN_SHAPES)
+    assert (2560, 151936) not in MAIN_SHAPES
 
 
 @pytest.mark.parametrize("shape", MAIN_SHAPES + RAGGED)
@@ -219,10 +251,19 @@ def test_merge_of_one_part_is_that_part():
 
 
 @pytest.mark.parametrize("b,hkv,g,t,mb", [
-    (4, 8, 4, 1, 11),       # the Llama draft pass at the model's pools
+    (4, 8, 4, 1, 11),       # the Llama (and qwen3-4b) draft pass
     (4, 8, 4, 4, 11),
     (4, 8, 4, 1, 257),      # 4 x 4096 tokens
     (4, 8, 4, 32, 257),
+    (4, 8, 6, 1, 11),       # DBRX, nemotron-4-15b: 48 heads over 8
+    (4, 8, 6, 4, 11),
+    (4, 8, 6, 32, 257),
+    (4, 2, 8, 1, 11),       # qwen2.5-3b: 16 heads over 2
+    (4, 2, 8, 4, 11),
+    (4, 2, 8, 1, 257),
+    (4, 8, 12, 1, 11),      # mistral-large-123b: 96 heads over 8
+    (4, 8, 12, 4, 257),
+    (4, 8, 2, 1, 11),       # qwen3-1.7b: 16 heads over 8
     (1, 1, 1, 1, 1), (3, 2, 2, 1, 0)])
 def test_gqa_split_plan_covers_the_table(b, hkv, g, t, mb, monkeypatch):
     bps, splits = PA.gqa_split_plan(b, hkv, g, t, mb)
@@ -274,6 +315,34 @@ def test_paged_gqa_split_walk_matches_unsplit_and_reference(t, d, split,
     assert (out[0][1] == 0).all() and (out[1][1] == PA.NEG_INF).all()
 
 
+@pytest.mark.parametrize("hkv,g", [(2, 6), (2, 8), (1, 12), (2, 4)])
+@pytest.mark.parametrize("t", [1, 4])
+def test_paged_gqa_walk_at_the_families_groups(hkv, g, t):
+    """The plain-pool walk at the query groups of the dense GQA family and
+    DBRX (G = 4 qwen3-4b, 6 DBRX / nemotron, 8 qwen2.5-3b, 12 mistral;
+    G·T rows that leave the last 16-row query tile part empty), split by
+    the main path's plan and unsplit, against the JAX reference's
+    ``paged_gqa`` within rtol 1e-4 / atol 1e-5."""
+    rng = np.random.default_rng(50 + g + t)
+    d = 128
+    q = TP.rand_bf16_np(rng, (B, t, hkv, g, d))
+    k = TP.rand_bf16_np(rng, (NB, BS, hkv, d))
+    v = TP.rand_bf16_np(rng, (NB, BS, hkv, d))
+    tbl = rng.integers(1, NB, (B, MB)).astype(np.int32)
+    tbl[0, 4], tbl[2, 1] = -3, NB + 7
+    args = (TP.to_port(q), TP.to_port(k), TP.to_port(v),
+            torch.from_numpy(tbl), torch.from_numpy(LENGTHS))
+    scale = d ** -0.5
+    bps, _ = PA.plain_split_plan(B, hkv, g, t, MB)
+    out = PA.paged_gqa_split_plain(*args, scale=scale, blocks_per_split=bps)
+    _close(out, PA.paged_gqa_plain(*args, scale=scale))
+    ref = JPA.paged_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(tbl), jnp.asarray(LENGTHS), scale=scale,
+                        impl="jnp")
+    _close(out, ref)
+    assert out[0].shape == (B, hkv, g, t, d)
+
+
 # ---------------------------------------------------------------------------
 # target_decode: the launch plan over a weight's superblocks
 # ---------------------------------------------------------------------------
@@ -307,7 +376,13 @@ def test_target_plan_covers_each_superblock_once(shape, target,
     (4, 8, 4, 4, 11, True),     # the Llama verify pass: 32 CTAs unsplit
     (4, 8, 4, 1, 257, True),    # one row a warp at 4 x 4096 tokens
     (4, 8, 4, 32, 11, False),   # a 32-token prefill chunk: 256 tiles
-    (4, 8, 4, 32, 257, False), (1, 2, 2, 32, 6, True)])
+    (4, 8, 4, 32, 257, False), (1, 2, 2, 32, 6, True),
+    (4, 8, 6, 4, 11, True),     # DBRX's verify pass: 64 tiles
+    (4, 8, 6, 32, 11, False),   # its prefill chunk: 384 tiles
+    (4, 2, 8, 4, 11, True),     # qwen2.5-3b's verify pass: 16 tiles
+    (4, 2, 8, 32, 11, True),    # its prefill chunk: 128 tiles < 132 SMs
+    (4, 8, 12, 4, 11, True),    # mistral's verify pass: 96 tiles
+    (4, 8, 12, 32, 11, False)])
 def test_plain_split_plan_splits_only_an_idle_grid(b, hkv, g, t, mb, split):
     """``paged_gqa`` splits the table only while the query tiles leave SMs
     idle; once they fill the card every CTA walks its whole table."""

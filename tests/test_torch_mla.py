@@ -1,7 +1,8 @@
 """Port vs reference: DeepSeek-V3's MLA attention at SMOKE width on the CPU.
 
-The SMOKE config has one dense layer and two routed-expert layers; MoE is
-not ported, so the tests cut it to its dense layers (two of them). Both
+The SMOKE config has one dense layer and two routed-expert layers; these
+MLA tests cut it to dense layers (two of them), and
+``tests/test_torch_moe.py`` runs it with its routed layers. Both
 packages run on the same weights (the reference's init, carried across
 with ``bridge.params_from_numpy``) and the same tokens (numpy from a seed).
 Cassandra-1 packs a store only when its width is a multiple of 32 (the
@@ -129,16 +130,26 @@ def test_init_params_tree_and_distributions(models):
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_routed_layers_raise(smoke):
-    """The full depth (58 routed layers) and SMOKE (2 routed) raise, naming
-    MoE, through the model and through the serve CLI; the dense cut runs."""
+    """The routed-expert layers no longer raise (MoE is ported): the full
+    depth (58 routed layers) and SMOKE (2) pass the model's check, and at
+    SMOKE the model builds its routed layers' ``moe`` trees and the serve
+    CLI serves it (bf16: SMOKE's rope 16 cannot pack under Cassandra-1, in
+    the reference either). MoE parity: ``tests/test_torch_moe.py``."""
     cfg = get_config(ARCH, smoke=smoke)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        M.init_params(cfg, torch.Generator(), device="cpu")
+    M._check_dense(cfg)
     if smoke:
-        with contextlib.redirect_stdout(io.StringIO()), \
-                pytest.raises(NotImplementedError, match="MoE"):
-            serve.run(["--arch", ARCH, "--smoke", "--device", "cpu"])
-    M._check_dense(dataclasses.replace(cfg, n_layers=cfg.first_dense_layers))
+        params = M.init_params(cfg, torch.Generator(), device="cpu")
+        assert [sorted(g["e0"]) for g in params["dec"]] == [
+            ["attn", "ffn", "norm1", "norm2"],
+            ["attn", "moe", "norm1", "norm2"]]
+        assert sorted(params["dec"][1]["e0"]["moe"]) == [
+            "experts", "router", "shared"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve.run(["--arch", ARCH, "--smoke", "--device", "cpu",
+                       "--variant", "0", "--requests", "1",
+                       "--prompt-len", "6", "--max-new", "3"])
+        assert "first request tokens:" in out.getvalue()
 
 
 # ---------------------------------------------------------------------------

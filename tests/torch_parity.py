@@ -87,3 +87,33 @@ def f32(a) -> np.ndarray:
         return a.detach().cpu().to(torch.float32).numpy()
     return np.asarray(jax.device_get(a)).astype(np.float32)
 
+
+
+def assert_init_like(port, ref, path="") -> None:
+    """The port's random init against the reference's: the same tree,
+    shapes and dtypes, every leaf's spread within 5% (the draws differ:
+    torch vs JAX)."""
+    if isinstance(ref, dict):
+        assert sorted(port) == sorted(ref), path
+        for k in ref:
+            assert_init_like(port[k], ref[k], f"{path}.{k}")
+    elif isinstance(ref, list):
+        for i, (p, r) in enumerate(zip(port, ref)):
+            assert_init_like(p, r, f"{path}[{i}]")
+    else:
+        assert tuple(port.shape) == ref.shape, path
+        assert str(port.dtype).split(".")[-1] == ref.dtype.name, path
+        rs = float(np.asarray(ref, np.float32).std())
+        ps = float(port.to(torch.float32).std())
+        assert abs(ps - rs) <= max(0.05 * abs(rs), 1e-6), (path, ps, rs)
+
+
+def without_kernel_operands(tree):
+    """A packed tree without the port's prepared draft-kernel operands
+    (``"kernel"``), which the reference does not have."""
+    if isinstance(tree, dict):
+        return {k: without_kernel_operands(v) for k, v in tree.items()
+                if k != "kernel"}
+    if isinstance(tree, list):
+        return [without_kernel_operands(v) for v in tree]
+    return tree
