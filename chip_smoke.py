@@ -160,10 +160,37 @@ these phases; any failure exits non-zero:
               ``moe_reference``, phase 6's Engine gates and the
               ``Scheduler`` with ``paged_mla`` and the first-token gate,
               at the no-overflow capacity;
-17. report  — ``kernels: [...]``, one JSON line per the kernels table,
+17. ssm      — the Mamba-1 family and the Jamba hybrid, each from a
+              generator of its own, C-1 (γ=3), 4 × 128-token prompts × 32
+              new: (a) falcon-mamba-7b at full width, all 64 layers (257
+              ``draft_matmul`` launches a draft pass: in_proj, x_proj,
+              dt_proj and out_proj a layer, and lm_head; no attention or
+              KV-codec launch): ``draft_matmul`` and ``target_decode`` per
+              shape as phase 4, every packed matrix's target view bit for
+              bit, phase 6's Engine gates exact (spec == AR at the verify
+              width on every position, the AR logits the verify pass's
+              bit for bit), the recurrence's device time a verify and a
+              draft pass (CUDA events) and the state's bytes a row, the
+              paged ``Scheduler`` with its first-token logits bit for bit
+              against the Engine's wide step over the same 32-token chunks
+              and its tokens against AR steps at the verify width from
+              that chunked cache on every position, the prefix cache and
+              swap refused; an f32 witness on the served weights: the
+              chunked prefill within 1e-3 of the logit rms of the one-pass
+              one in f32, and the served first-token gap at most 3 × the
+              bf16 one-pass prefill's own distance from f32; at 2 layers
+              overlap on == off, fused == alternating, the plain model's
+              stable draft accepted on every position and its scratch
+              draft equal to width-1 AR steps bit for bit;
+              (b) Jamba at full width cut to one 8-layer period (7 Mamba
+              mixers, 1 GQA layer, 4 dense and 4 MoE FFNs), the same gates
+              with the attention kernels on, ``moe`` against
+              ``moe_reference``, 0 drops at ``moe_capacity_factor =
+              n_experts / n_experts_per_tok``;
+18. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 4c, 7-17 (4b and 4c read phase 6's
+Phases run in the order 1-6, 4b, 4c, 7-18 (4b and 4c read phase 6's
 prompts). Phases 6, 7, 9, 10, 12, 13, each run of 14 and the first of
 each pair in 15 set every kernel's launch count to 0 before their run
 and check it after against what the passes imply
@@ -673,6 +700,18 @@ def tau_check(spec_tok, ar_tok, margins, tau: float, n: int,
     return compared, ar_tok.shape[0] * n - compared
 
 
+def attn_counts(cfg) -> tuple:
+    """(attention layers, attention entries) of a model: a KV store is
+    viewed once per attention layer and pass, and a stacked entry's
+    stores encode (and take their draft view) in one launch each. For a
+    model whose every layer attends: (n_layers, layer groups)."""
+    from repro_torch.configs import layer_groups
+    groups = layer_groups(cfg)
+    return (sum(g.repeats * sum(e[0] == "a" for e in g.entries)
+                for g in groups),
+            sum(e[0] == "a" for g in groups for e in g.entries))
+
+
 def ar_steps(rt_t, params, cache, lg, n: int, width: int):
     """Greedy autoregressive decode of ``n`` tokens from a copy of the
     prefilled ``cache`` (``lg`` its last logits), every step run at
@@ -696,17 +735,18 @@ def ar_steps(rt_t, params, cache, lg, n: int, width: int):
 
 
 def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
-               rt_extra: dict | None = None) -> dict:
-    """Phase 6 (and phase 16's Engine runs, under ``tag``): AR steps at
-    width 1 and at the verify width against one verify pass, the draft
-    side of one cycle, then ``Engine.generate`` autoregressive and
+               rt_extra: dict | None = None, exact: bool = False) -> dict:
+    """Phase 6 (and phase 16's and 17's Engine runs, under ``tag``): AR
+    steps at width 1 and at the verify width against one verify pass, the
+    draft side of one cycle, then ``Engine.generate`` autoregressive and
     speculative; spec tokens against the verify-width AR run under the
     near-tie rule (>= 90% of positions), launches as the passes imply.
+    ``exact``: the verify-width AR steps must equal the verify pass bit
+    for bit and the spec tokens the AR run's on every position.
     ``rt_extra`` goes to the Engine's ``Runtime`` (MoE's capacity)."""
     import dataclasses
 
     import torch
-    from repro_torch.configs import layer_groups
     from repro_torch.kernels import draft_matmul as DM
     from repro_torch.models import model as M
     from repro_torch.serving import kvcache as KC
@@ -795,8 +835,14 @@ def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
             fail(f"{tag}: {what} tokens out of range: {t[:, :n]}")
     # lossless: against the AR run at the verify width (tau from its gap)
     tau = 2.0 * gap[gamma + 1]
+    if exact and gap[gamma + 1] != 0.0:
+        fail(f"{tag}: AR steps at the verify width differ from the verify "
+             f"pass by {gap[gamma + 1]}")
     compared, cut = tau_check(sp_np, wide[0], wide[1], tau, n)
     share = compared / (b * n)
+    if exact and compared != b * n:
+        fail(f"{tag}: spec == AR at the verify width on only {compared} of "
+             f"{b * n} positions")
     say(f"[{tag}] lossless: spec == AR at the verify width {gamma + 1} on "
         f"{compared} of {b * n} positions ({share:.1%}); tau = 2 x its max "
         f"abs diff = {tau:.3g} cut {cut}")
@@ -820,13 +866,13 @@ def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
     # per KV target view per layer per verify pass and per draft view of
     # the cache once per cycle; one kv_encode per store per commit
     # (a layer group's stores encode and view in one launch each)
-    cyc, mats, groups = (st_sp["cycles"], packed_matrices(packed),
-                         len(layer_groups(cfg)))
+    cyc, mats = st_sp["cycles"], packed_matrices(packed)
+    layers, entries = attn_counts(cfg)
     check_launches(tag, codec, {
         "mx_decode": 0, "mx_view": 0, "kv_topk": 0,
-        "kv_encode": 2 * groups * (1 + cyc),
-        "kv_view": 2 * cfg.n_layers * cyc + 2 * groups * cyc,
-        "unary_decode": (st_sp["draft_passes"] * cfg.n_layers
+        "kv_encode": 2 * entries * (1 + cyc),
+        "kv_view": 2 * layers * cyc + 2 * entries * cyc,
+        "unary_decode": (st_sp["draft_passes"] * layers
                          * _kv_b_pieces(packed) if cfg.mla else 0),
         "target_decode": mats * (1 + cyc)})
     say(f"[{tag}] spec: cycles {st_sp['cycles']}, acceptance "
@@ -847,21 +893,29 @@ def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
 # Phase 4b: the paged-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def paged_prefill(packed, cfg, cass, prompt, n_new: int):
-    """Chunked prefill of ``prompt`` (B,S) into a packed paged cache through
-    the engine's own wide step, row b on blocks 1+b·MB .. (block 0 is the
-    trash block). Returns (cache, the last prefill logits (B,V))."""
+def paged_prefill(packed, cfg, cass, prompt, n_new: int,
+                  rt_extra: dict | None = None, attn_kernel: str = "on",
+                  f32: bool = False):
+    """Chunked prefill of ``prompt`` (B,S) into a paged cache (packed when
+    ``cass`` is given) through the engine's own wide step, row b on blocks
+    1+b·MB .. (block 0 is the trash block). ``f32``: every floating leaf
+    of the cache in f32 (a plain f32 model's). Returns (cache, the last
+    prefill logits (B,V))."""
     import torch
     from repro_torch.models.layers import Runtime
     from repro_torch.serving import engine as E, kvcache as KC
     from repro_torch.serving.blockpool import blocks_needed
     b, s = prompt.shape
-    mb = blocks_needed(s + n_new + cass.gamma + 1, BLOCK)
+    gamma = cass.gamma if cass is not None else 3
+    mb = blocks_needed(s + n_new + gamma + 1, BLOCK)
     cache = KC.init_paged_cache(cfg, cass, b, b * mb + 1, BLOCK, mb,
-                                packed=True, device="cuda")
+                                packed=cass is not None, device="cuda")
+    if f32:
+        _floats_to_f32(cache)
     cache["block_table"] = (1 + torch.arange(b * mb, device="cuda")).reshape(
         b, mb).to(torch.int32)
-    rt = Runtime(cfg=cfg, cass=cass, view="target", attn_kernel="on")
+    rt = Runtime(cfg=cfg, cass=cass, view="target", attn_kernel=attn_kernel,
+                 **(rt_extra or {}))
     valid = torch.full((b,), CHUNK, dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         for c0 in range(0, s, CHUNK):
@@ -869,6 +923,17 @@ def paged_prefill(packed, cfg, cass, prompt, n_new: int):
                 rt, packed, cache, prompt[:, c0:c0 + CHUNK].contiguous(),
                 valid)
     return cache, last
+
+
+def _floats_to_f32(tree) -> None:
+    """Every floating tensor of a nested dict / list in f32, in place (one
+    leaf at a time, so a bf16 tree's peak is its f32 size and a leaf)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            _floats_to_f32(v)
+        elif getattr(v, "is_floating_point", lambda: False)():
+            tree[k] = v.float()
 
 
 def _synthetic_store(cfg, cass, nb: int, gen):
@@ -2510,12 +2575,11 @@ def pass_launches(kind: str, st: dict, cfg, cass, packed) -> dict:
     of phases 7, 10 and 13): ``kind`` "c1" (GQA, attention kernels on),
     "c2" (attention kernel off) or "mla" (``paged_mla``). Block copies,
     spills and restores are plain indexing: no launch."""
-    from repro_torch.configs import layer_groups
-    layers, gamma = cfg.n_layers, cass.gamma
+    gamma = cass.gamma
+    layers, groups = attn_counts(cfg)   # an entry's stores encode at once
     unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
     drafts, targets = gamma * unified, st["cycles"]
     mats = packed_matrices(packed)
-    groups = len(layer_groups(cfg))     # a group's stores encode at once
     out = dict.fromkeys(all_launches(), 0)
     if kind == "c1":
         out.update(draft_matmul=drafts * draft_matrices(packed),
@@ -3447,9 +3511,12 @@ def family_setup(tag: str, cfg, seed: int) -> dict:
     del plain
     gc.collect()
     torch.cuda.empty_cache()
+    mixer = (f"Mamba d_inner {cfg.d_inner}, state {cfg.ssm_state}, dt_r "
+             f"{cfg.dt_r}, pattern {''.join(e[0] for e in cfg.block_pattern)}, "
+             if cfg.sub_quadratic else "")
     say(f"[{tag}] {cfg.name}, {cfg.n_layers} layers at full width (d "
-        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, experts "
+        f"{cfg.d_model}, {mixer}{cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, experts "
         f"{cfg.n_experts} top-{cfg.n_experts_per_tok}): "
         f"{n_par / 1e9:.3f}e9 parameters; init {t_init:.1f} s, "
         f"format_params {t_fmt:.1f} s; {draft_matrices(packed)} draft_matmul "
@@ -3491,13 +3558,17 @@ class DropCounter:
 
 
 def family_sched(tag: str, m: dict, args, eng: dict, kind: str,
-                 rt_extra: dict | None = None) -> int:
-    """The paged ``Scheduler`` (kernels on) on phase 16's model ``m`` over
-    the Engine run's prompts: launches as the passes imply
-    (``pass_launches``), first-token logits within a tenth of the logit
-    rms of the Engine's prefill, tokens against the Engine's AR at the
-    verify width under the near-tie rule (share printed). Returns the
-    MoE drops."""
+                 rt_extra: dict | None = None, chunked: bool = False) -> int:
+    """The paged ``Scheduler`` (kernels on) on phase 16's or 17's model
+    ``m`` over the Engine run's prompts: launches as the passes imply
+    (``pass_launches``). Without ``chunked``: first-token logits within a
+    tenth of the logit rms of the Engine's one-pass prefill, tokens against
+    the Engine's AR at the verify width under the near-tie rule (share
+    printed). ``chunked`` (the Mamba models): ``chunked_ar_check`` holds
+    the first token and the tokens to the Engine's own steps from the same
+    chunked cache, and the first-token gap to the one-pass prefill is
+    kept in ``eng["sched_gap"]`` for ``chunk_witness`` to gate. Returns
+    the MoE drops."""
     import numpy as np
     import torch
 
@@ -3520,26 +3591,140 @@ def family_sched(tag: str, m: dict, args, eng: dict, kind: str,
     if got != expect:
         fail(f"{tag}: launches {got} != expected {expect}")
     gmax, grms = _logit_gap(first, lg)
-    say(f"[{tag}] first-token logits vs the Engine's prefill: max abs diff "
-        f"{gmax:.4g}, rms {grms:.4g} (logit rms {lrms:.4g}; limit "
-        f"{0.1 * lrms:.4g})")
-    if not gmax < 0.1 * lrms:
-        fail(f"{tag}: first-token logits differ from the Engine's by {gmax}")
-    ref_tok, margins = eng["wide"]
-    compared, cut = tau_check(tokens, ref_tok, margins, 2.0 * gmax, n,
-                              what=tag)
+    if chunked:
+        eng["sched_gap"] = gmax
+        say(f"[{tag}] first-token logits vs the one-pass prefill: max abs "
+            f"diff {gmax:.4g}, rms {grms:.4g} (logit rms {lrms:.4g}); gated "
+            f"by the f32 witness below")
+        compared, cut, ref = chunked_ar_check(tag, m, eng["prompt"], first,
+                                              tokens, n, rt_extra)
+    else:
+        say(f"[{tag}] first-token logits vs the Engine's prefill: max abs "
+            f"diff {gmax:.4g}, rms {grms:.4g} (logit rms {lrms:.4g}; limit "
+            f"{0.1 * lrms:.4g})")
+        if not gmax < 0.1 * lrms:
+            fail(f"{tag}: first-token logits differ from the Engine's by "
+                 f"{gmax}")
+        ref_tok, margins = eng["wide"]
+        compared, cut = tau_check(tokens, ref_tok, margins, 2.0 * gmax, n,
+                                  what=tag)
+        ref = (f"Engine (== AR at the verify width) under tau = 2 x the "
+               f"first-token gap = {2 * gmax:.3g}")
     b = tokens.shape[0]
     unified = st["cycles"] - st["prefill_cycles"] + st["mixed_cycles"]
     uni = st["bucket_wall_ms"].get("unified", {})
     say(f"[{tag}] {b} requests x {n} tokens: cycles {st['cycles']} (unified "
         f"{unified}), acceptance {st['acceptance']:.3f}, {b * n / wall:.2f} "
         f"tok/s ({wall:.1f} s), unified step {uni.get('mean_ms', 0.0):.1f} "
-        f"ms; tokens == Engine (== AR at the verify width) on {compared} of "
-        f"{b * n} positions under tau = 2 x the first-token gap = "
-        f"{2 * gmax:.3g}, cut {cut}; MoE calls {drops.calls}, dropped "
-        f"{drops.dropped}; max_memory_allocated "
+        f"ms; tokens == {ref} on {compared} of {b * n} positions, cut {cut}; "
+        f"MoE calls {drops.calls}, dropped {drops.dropped}; "
+        f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return drops.dropped
+
+
+def chunked_ar_check(tag: str, m: dict, prompt, first, tokens, n: int,
+                     rt_extra: dict | None) -> tuple:
+    """The Scheduler's prefill and tokens against the Engine's own steps
+    from the same chunked cache, bit for bit: ``paged_prefill`` (the
+    Engine's wide step over the same 32-token chunks) must give the
+    first-token logits, and ``ar_steps`` at the verify width from its
+    cache every token, those AR steps equalling one verify pass over
+    their tokens (the step-by-step recurrence reaches each position's
+    state as an AR step does). Returns (compared, cut, what the tokens
+    were held to)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    cfg, cass, packed = m["cfg"], m["cass"], m["packed"]
+    gamma = cass.gamma
+    cache, last = paged_prefill(packed, cfg, cass, prompt, n, rt_extra)
+    same = np.array_equal(first, last.float().cpu().numpy())
+    rt = Runtime(cfg=cfg, cass=cass, view="target", attn_kernel="on",
+                 **(rt_extra or {}))
+    with torch.inference_mode():
+        ar_tok, ar_lg = ar_steps(rt, packed, cache, last, n, gamma + 1)
+        l_v, _ = M.forward_decode(rt, packed, ar_tok[:, :gamma + 1], cache)
+    gap = (ar_lg[:, 1:gamma + 2] - l_v.float()).abs().max().item()
+    del cache, l_v
+    b = tokens.shape[0]
+    agree = int((tokens == ar_tok.cpu().numpy()).sum())
+    say(f"[{tag}] first-token logits vs the Engine's wide step over the "
+        f"same {len(first)} x {CHUNK}-token chunks: bit for bit: {same}; AR "
+        f"steps at the verify width {gamma + 1} from that cache vs one "
+        f"verify pass: max abs diff {gap:.4g}; tokens equal on {agree} of "
+        f"{b * n} positions")
+    if not same:
+        fail(f"{tag}: first-token logits differ from the chunked prefill's")
+    if gap != 0.0 or agree != b * n:
+        fail(f"{tag}: AR steps differ from the verify pass by {gap}, or "
+             f"tokens agree on only {agree} of {b * n} positions")
+    return agree, b * n - agree, ("AR at the verify width from the chunked "
+                                  "cache, bit for bit,")
+
+
+def chunk_witness(tag: str, cfg, seed: int, prompt, n: int,
+                  rt_extra: dict | None, served_gap: float) -> dict:
+    """Whether the Scheduler's first-token gap (its 32-token chunks against
+    the Engine's one 128-token pass) is rounding. The plain model of the
+    served weights (``seed`` as ``family_setup``), attention on the gather
+    path: the chunked prefill (``paged_prefill``) against the one-pass
+    prefill in bf16, then with every leaf and cache in f32, where rounding
+    is 2^16 times finer. Gates: the f32 gap below 1e-3 of the logit rms
+    (a fault in the chunk's carry would not shrink), and the served gap
+    at most 3 x the bf16 one-pass prefill's own distance from the f32
+    one. Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import kvcache as KC
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    plain = M.init_params(cfg, gen, device="cuda")
+    rt = Runtime(cfg=cfg, view="plain", **(rt_extra or {}))
+    b, s = prompt.shape
+    out = {}
+    for dt in ("bf16", "f32"):
+        if dt == "f32":
+            _floats_to_f32(plain)
+        cache = KC.init_cache(cfg, None, b, s + 1, packed=False,
+                              device="cuda")
+        if dt == "f32":
+            _floats_to_f32(cache)
+        with torch.inference_mode():
+            lg, _ = M.forward_prefill(rt, plain, {"tokens": prompt}, cache)
+        del cache
+        _, last = paged_prefill(plain, cfg, None, prompt, n, rt_extra,
+                                attn_kernel="off", f32=dt == "f32")
+        out[dt] = (lg[:, -1].double().cpu().numpy(),
+                   last.double().cpu().numpy())
+        torch.cuda.empty_cache()
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    (o16, c16), (o32, c32) = out["bf16"], out["f32"]
+    lrms = float(np.sqrt((o32 ** 2).mean()))
+    res = {"g16": float(np.abs(c16 - o16).max()),
+           "g32": float(np.abs(c32 - o32).max()),
+           "e_one": float(np.abs(o16 - o32).max()),
+           "e_chunk": float(np.abs(c16 - o32).max()), "lrms": lrms,
+           "served": served_gap}
+    say(f"[{tag}] chunked vs one-pass prefill, plain model of the served "
+        f"weights: bf16 max abs diff {res['g16']:.4g}, f32 "
+        f"{res['g32']:.4g} (limit {1e-3 * lrms:.4g} = 1e-3 x the logit rms "
+        f"{lrms:.4g}); bf16 vs f32: one-pass {res['e_one']:.4g}, chunked "
+        f"{res['e_chunk']:.4g}; the served gap {served_gap:.4g} (limit 3 x "
+        f"{res['e_one']:.4g} = {3 * res['e_one']:.4g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not res["g32"] < 1e-3 * lrms:
+        fail(f"{tag}: in f32 the chunked prefill differs from the one-pass "
+             f"prefill by {res['g32']}")
+    if not served_gap <= 3 * res["e_one"]:
+        fail(f"{tag}: the served first-token gap {served_gap} exceeds 3 x "
+             f"the bf16 prefill's own rounding {res['e_one']}")
+    return res
 
 
 def bitwise_runs(tag: str, cfg, packed, cass, prompt, n: int, runs,
@@ -3630,9 +3815,9 @@ def moe_oracle_check(tag: str, m: dict, x, rt_extra: dict) -> float:
     from repro_torch.models.model import _index
     cfg = m["cfg"]
     rt = Runtime(cfg=cfg, cass=m["cass"], view="target", **rt_extra)
-    gi = next(i for i, g in enumerate(m["packed"]["dec"])
-              if "moe" in g["e0"])
-    p = _index(m["packed"]["dec"][gi]["e0"]["moe"], 0)
+    gi, ekey = next((i, k) for i, g in enumerate(m["packed"]["dec"])
+                    for k, e in g.items() if "moe" in e)
+    p = _index(m["packed"]["dec"][gi][ekey]["moe"], 0)
     with torch.inference_mode():
         out, aux = F.moe(rt, p, x)
         ref = F.moe_reference(rt, p, x)
@@ -3750,6 +3935,296 @@ def deepseek_moe_phase(args) -> dict:
     torch.cuda.empty_cache()
     say(f"[ds-moe] phase 16c in {time.perf_counter() - t0:.1f} s")
     return {"err": err, "eng": eng}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the Mamba-1 family (falcon-mamba-7b) and the Jamba hybrid
+# ---------------------------------------------------------------------------
+
+def _ssm_weights_by_shape(packed, cfg) -> dict:
+    """A Mamba model's packed mixer products per shape (layer group 0's
+    first Mamba entry; products a pass: one per Mamba layer; all four at
+    full width) and its lm_head."""
+    from repro_torch.configs import layer_groups
+    mixers = sum(g.repeats * sum(e[0] == "s" for e in g.entries)
+                 for g in layer_groups(cfg))
+    ssm = next(e["ssm"] for e in packed["dec"][0].values() if "ssm" in e)
+    out = {nm: (ssm[nm]["w"], mixers)
+           for nm in ("in_proj", "x_proj", "dt_proj", "out_proj")
+           if isinstance(ssm[nm]["w"], dict)}   # dt_proj: packed from 64 in
+    out["lm_head"] = (packed["lm_head"]["w"], 1)
+    return out
+
+
+def ssm_state_bytes(cfg) -> int:
+    """Bytes of one row's recurrent state: every Mamba layer's conv window
+    (bf16) and h (f32), as ``kvcache.ssm_state_specs`` lays them out."""
+    from repro_torch.configs import layer_groups
+    from repro_torch.serving import kvcache as KC
+    total = 0
+    for g in layer_groups(cfg):
+        for e in g.entries:
+            if e[0] == "s":
+                for shape, dtype in KC.ssm_state_specs(
+                        cfg, g.repeats, 1).values():
+                    total += math.prod(shape) * dtype.itemsize
+    return total
+
+
+def scan_ms(m: dict, prompt, reps: int = 3) -> dict:
+    """The Mamba recurrence's device time a pass (CUDA events around every
+    ``ssm._selective_scan`` call, summed over the layers), beside the
+    pass's own host-timed wall: a verify pass (width γ+1, the committed
+    state) and a draft pass (width 1, the draft scratch) from the
+    prefilled cache of ``prompt``; the median of ``reps``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M, ssm as SS
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import engine as E, kvcache as KC
+    cfg, cass, packed = m["cfg"], m["cass"], m["packed"]
+    gamma = cass.gamma
+    rt = Runtime(cfg=cfg, cass=cass, view="target", **m["extra"])
+    b, s = prompt.shape
+    spans = []
+    inner = SS._selective_scan
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    def one(fn):
+        spans.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return sum(a.elapsed_time(z) for a, z in spans), wall, len(spans)
+
+    cache = KC.init_cache(cfg, cass, b, s + gamma + 2, packed=True,
+                          device="cuda")
+    out = {}
+    SS._selective_scan = timed
+    try:
+        with torch.inference_mode():
+            _, cache = M.forward_prefill(rt, packed, {"tokens": prompt},
+                                         cache)
+            cur = prompt[:, -1:]
+            rt_d = dataclasses.replace(rt, view="draft")
+            passes = {
+                "verify": lambda: M.forward_decode(
+                    rt, packed, cur.expand(-1, gamma + 1).contiguous(),
+                    cache),
+                "draft": lambda: M.forward_decode(
+                    rt_d, packed, cur, cache,
+                    scratch=E.make_scratch(cfg, cache, gamma),
+                    scratch_len=0)}
+            for name, fn in passes.items():
+                fn()
+                runs = sorted(one(fn) for _ in range(reps))
+                out[name] = runs[reps // 2]
+    finally:
+        SS._selective_scan = inner
+    return out
+
+
+def ssm_engine(tag: str, m: dict, args) -> dict:
+    """Phase 6's Engine gates on a Mamba model, exact (``main_phase``
+    with ``exact=True``): spec tokens equal AR at the verify width on
+    every position; then the recurrence's time a pass and the state's
+    bytes a row."""
+    with DropCounter() as drops:
+        eng = main_phase(m["packed"], m["cfg"], m["cass"], m["gen"], args,
+                         tag=tag, rt_extra=m["extra"], exact=True)
+    if drops.dropped:
+        fail(f"{tag}: {drops.dropped} tokens dropped at a capacity that "
+             f"cannot overflow")
+    sc = scan_ms(m, eng["prompt"])
+    (v_ms, v_wall, v_n), (d_ms, d_wall, d_n) = sc["verify"], sc["draft"]
+    say(f"[{tag}] the recurrence (ssm._selective_scan, CUDA events, median "
+        f"of 3): verify pass (width {m['cass'].gamma + 1}) {v_ms:.3f} ms "
+        f"over {v_n} layers of a {v_wall:.1f} ms pass; draft pass (width 1) "
+        f"{d_ms:.3f} ms of {d_wall:.1f} ms; SSM state "
+        f"{ssm_state_bytes(m['cfg']) / 2**20:.2f} MiB a row; MoE calls "
+        f"{drops.calls}, dropped {drops.dropped}")
+    eng["scan"] = sc
+    return eng
+
+
+def ssm_refusals(tag: str, cfg) -> None:
+    """The prefix cache and swap raise the reference's ``ValueError`` for
+    an SSM model."""
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.scheduler import Scheduler
+    for what, kw in (("prefix cache", {"prefix_cache": True}),
+                     ("swap", {"swap": True})):
+        try:
+            Scheduler(cfg, None, ecfg=EngineConfig(gamma=3), num_slots=2,
+                      s_max=64, paged=True, block_size=4, chunk_size=4,
+                      device="cuda", **kw)
+        except ValueError as e:
+            say(f"[{tag}] {what} refused: {e}")
+            continue
+        fail(f"{tag}: the {what} was not refused for {cfg.name}")
+
+
+def stable_draft_check(tag: str, cfg, seed: int, args,
+                       rt_extra: dict) -> None:
+    """The plain model (no Cassandra). With the shape-stable draft it
+    accepts every draft: each draft pass re-feeds the prefix from the
+    committed state at the verify width (reference ``tests/test_serving.py``'s
+    ``test_plain_stable_draft_bitwise_acceptance``). With the scratch
+    draft, one cycle's γ draft tokens and logits equal γ AR steps at width
+    1 from the same prefilled cache, bit for bit: the same ops at the same
+    M, so draft step i must read the state step i-1 left in the scratch."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import Engine, EngineConfig, _run_drafts
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    plain = M.init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (args.requests,
+                                               args.prompt_len),
+                           generator=gen, device="cuda").to(torch.int32)
+    eng = Engine(cfg, plain, cass=None,
+                 ecfg=EngineConfig(gamma=3, stable_draft=True),
+                 device="cuda", rt_extra=rt_extra)
+    t0 = time.perf_counter()
+    _, st = eng.generate({"tokens": prompt}, max_new=args.max_new)
+    say(f"[{tag}] plain model, stable draft: acceptance {st['acceptance']} "
+        f"over {st['cycles']} cycles ({time.perf_counter() - t0:.1f} s)")
+    if st["acceptance"] != 1.0:
+        fail(f"{tag}: the plain stable draft accepted {st['acceptance']}")
+    eng = Engine(cfg, plain, cass=None, ecfg=EngineConfig(gamma=3),
+                 device="cuda", rt_extra=rt_extra)
+    rt_t = dataclasses.replace(eng.rt, view="target")
+    cache = KC.init_cache(cfg, None, prompt.shape[0], prompt.shape[1] + 5,
+                          packed=False, device="cuda")
+    with torch.inference_mode():
+        lg, cache = M.forward_prefill(rt_t, plain, {"tokens": prompt}, cache)
+        toks, logits = ar_steps(rt_t, plain, cache, lg[:, -1], 4, 1)
+        drafts, dlogits = _run_drafts(eng.rt, plain, cache, toks[:, :1],
+                                      eng.ecfg)
+    same_tok = torch.equal(drafts, toks[:, 1:])
+    same_lg = all(torch.equal(d.float(), logits[:, i + 1])
+                  for i, d in enumerate(dlogits))
+    say(f"[{tag}] plain model, scratch draft: {len(dlogits)} draft steps vs "
+        f"AR steps at width 1 from the same cache: tokens bit for bit "
+        f"{same_tok}, logits bit for bit {same_lg}")
+    if not (same_tok and same_lg):
+        fail(f"{tag}: the scratch draft chain differs from width-1 AR steps")
+    del eng, plain, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mamba_phase(args) -> dict:
+    """Phase 17a: falcon-mamba-7b at full width, all 64 layers, C-1
+    (γ=3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    m = family_setup("mamba", get_config("falcon-mamba-7b"), args.seed + 26)
+    cfg, cass, packed = m["cfg"], m["cass"], m["packed"]
+    by_shape = _ssm_weights_by_shape(packed, cfg)
+    draft_shapes(by_shape, cass, torch.Generator(
+        device="cuda").manual_seed(args.seed + 27), "mamba-kernels")
+    err = target_all_bitwise(packed, cass, "mamba-kernels")
+    target_shapes(by_shape, cass, torch.Generator(
+        device="cuda").manual_seed(args.seed + 28), "mamba-kernels",
+        args.requests * (cass.gamma + 1))
+    eng = ssm_engine("mamba", m, args)
+    family_sched("mamba-sched", m, args, eng, "c1", rt_extra=m["extra"],
+                 chunked=True)
+    ssm_refusals("mamba", cfg)
+    del m, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    wit = chunk_witness("mamba-witness", cfg, args.seed + 26, eng["prompt"],
+                        args.max_new, {}, eng["sched_gap"])
+    # the bitwise serving gates at 2 layers (full width)
+    m2 = family_setup("mamba-depth2", dataclasses.replace(cfg, n_layers=2),
+                      args.seed + 29)
+    prompt = torch.randint(0, cfg.vocab_size, (args.requests,
+                                               args.prompt_len),
+                           generator=m2["gen"], device="cuda").to(torch.int32)
+    bitwise_runs("mamba-depth2", m2["cfg"], m2["packed"], m2["cass"], prompt,
+                 args.max_new, [("on", {}), ("overlap off",
+                                              {"overlap": False}),
+                                ("alternating", {"fused": False})],
+                 rt_extra=m2["extra"])
+    del m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    stable_draft_check("mamba-depth2", dataclasses.replace(cfg, n_layers=2),
+                       args.seed + 30, args, {})
+    say(f"[mamba] phase 17a in {time.perf_counter() - t0:.1f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    return {"err": err, "eng": eng, "witness": wit}
+
+
+def jamba_phase(args) -> dict:
+    """Phase 17b: jamba-v0.1-52b at full width cut to one 8-layer period
+    (7 Mamba mixers, 1 GQA layer, 4 dense and 4 MoE FFNs of 16 experts,
+    top-2), C-1 (γ=3), at the no-overflow capacity."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
+    m = family_setup("jamba", cfg, args.seed + 31)
+    cass, packed, extra = m["cass"], m["packed"], m["extra"]
+    # the mixers' shapes are falcon-mamba's, the attention and dense FFN
+    # Llama-3-8B's: only the vocabulary is new
+    by_shape = {"lm_head": (packed["lm_head"]["w"], 1)}
+    draft_shapes(by_shape, cass, torch.Generator(
+        device="cuda").manual_seed(args.seed + 32), "jamba-kernels")
+    err = target_all_bitwise(packed, cass, "jamba-kernels")
+    target_shapes(by_shape, cass, torch.Generator(device="cuda").manual_seed(
+        args.seed + 33), "jamba-kernels", args.requests * (cass.gamma + 1))
+    x = (torch.randn((args.requests, CHUNK, cfg.d_model),
+                     generator=m["gen"], device="cuda") * 0.5).to(
+        torch.bfloat16)
+    moe_oracle_check("jamba", m, x, extra)
+    eng = ssm_engine("jamba", m, args)
+    dropped = family_sched("jamba-sched", m, args, eng, "c1",
+                           rt_extra=extra, chunked=True)
+    runs = bitwise_runs("jamba-sched", cfg, packed, cass, eng["prompt"],
+                        args.max_new, [("on", {}), ("overlap off",
+                                                     {"overlap": False}),
+                                       ("alternating", {"fused": False})],
+                        rt_extra=extra)
+    if dropped or any(d for _, d in runs.values()):
+        fail("jamba-sched: tokens dropped at a capacity that cannot "
+             "overflow")
+    ssm_refusals("jamba", cfg)
+    del m, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    wit = chunk_witness("jamba-witness", cfg, args.seed + 31, eng["prompt"],
+                        args.max_new, extra, eng["sched_gap"])
+    stable_draft_check("jamba", cfg, args.seed + 34, args, extra)
+    say(f"[jamba] phase 17b in {time.perf_counter() - t0:.1f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    return {"err": err, "eng": eng, "witness": wit}
 
 
 # ---------------------------------------------------------------------------
@@ -3900,8 +4375,20 @@ def run(args) -> None:
             f"{v['eng']['codec']['kv_encode']} kv_encode"
             for k, v in fam.items()))
     td_err = max([td_err] + [v["err"] for v in fam.values()])
+    # 17. the Mamba-1 family and the Jamba hybrid: falcon-mamba-7b at full
+    # width (64 layers), Jamba at full width cut to one 8-layer period
+    t0 = time.perf_counter()
+    ssm = {"mamba": mamba_phase(args), "jamba": jamba_phase(args)}
+    say(f"[ssm] phase 17 in {time.perf_counter() - t0:.1f} s; launches of "
+        f"the Engine runs: " + "; ".join(
+            f"{k} {v['eng']['launches']} draft_matmul, "
+            f"{v['eng']['codec']['target_decode']} target_decode, "
+            f"{v['eng']['codec']['kv_view']} kv_view, "
+            f"{v['eng']['codec']['kv_encode']} kv_encode"
+            for k, v in ssm.items()))
+    td_err = max([td_err] + [v["err"] for v in ssm.values()])
 
-    # 17. report
+    # 18. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
         '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
         '"target_decode", "mx_view", "kv_encode", "kv_view"]')

@@ -1,9 +1,11 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
 The port knows the paper's two models (llama3-8b, qwen3-4b), the dense
-GQA family (qwen3-1.7b, qwen2.5-3b, nemotron-4-15b, mistral-large-123b)
-and the MoE models (dbrx-132b, deepseek-v3-671b with MLA). The SSM,
-encoder-decoder and frontend families join with ROADMAP Queue 1 item 5.
+GQA family (qwen3-1.7b, qwen2.5-3b, nemotron-4-15b, mistral-large-123b),
+the MoE models (dbrx-132b, deepseek-v3-671b with MLA) and the Mamba-1
+models (falcon-mamba-7b, and jamba-v0.1-52b, a hybrid of Mamba, GQA and
+MoE layers). The encoder-decoder and frontend families join with ROADMAP
+Queue 1 item 5.
 ``smoke=True`` returns the reduced same-family config the CPU tests use.
 """
 from __future__ import annotations
@@ -23,6 +25,8 @@ _MODULES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "dbrx-132b": "dbrx_132b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     # the paper's own evaluation models
     "llama3-8b": "llama3_8b",
     "qwen3-4b": "qwen3_4b",
@@ -32,7 +36,7 @@ _MODULES = {
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port knows "
-                       f"{sorted(_MODULES)} (other families: ROADMAP "
-                       "Queue 1 item 5)")
+                       f"{sorted(_MODULES)} (encoder-decoder and frontend "
+                       "models: ROADMAP Queue 1 item 5)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -12,12 +12,14 @@ the reference). ``--smoke`` takes
 the reduced config; ``--device cpu`` runs the plain versions on the CPU.
 Weights are random, drawn from ``--seed``. ``--arch`` takes every name
 of ``repro_torch.configs`` (llama3-8b, qwen3-4b, qwen3-1.7b, qwen2.5-3b,
-nemotron-4-15b, mistral-large-123b, dbrx-132b, deepseek-v3-671b). At full
-depth mistral-large-123b, dbrx-132b and deepseek-v3-671b exceed one 80 GB
-card: serve them at ``--smoke`` or cut their depth through the Python API
-(``chip_smoke.py`` phase 16). MoE layers route with the reference's
-default capacity factor (``Runtime.moe_capacity_factor``, 1.25); the
-reference's serve has no flag for it either.
+nemotron-4-15b, mistral-large-123b, dbrx-132b, deepseek-v3-671b,
+falcon-mamba-7b, jamba-v0.1-52b). At full depth mistral-large-123b,
+dbrx-132b, deepseek-v3-671b and jamba-v0.1-52b exceed one 80 GB card: serve
+them at ``--smoke`` or cut their depth through the Python API
+(``chip_smoke.py`` phases 16 and 17). The Mamba models refuse
+``--prefix-cache`` and ``--swap``, as the reference does. MoE layers route with the
+reference's default capacity factor (``Runtime.moe_capacity_factor``,
+1.25); the reference's serve has no flag for it either.
 
 With ``--scheduler --paged``, ``--prefix-cache`` shares cached prompt-prefix
 blocks across requests (``--shared-header`` gives every request the first

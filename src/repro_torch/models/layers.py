@@ -44,6 +44,10 @@ class Runtime:
     balanced router (``ffn.moe_capacity``). At ``n_experts /
     n_experts_per_tok`` or more no token is ever dropped, so no row's
     output depends on what else rides in its batch.
+
+    There is no ``ssm_chunk``: the reference's scan chunk sizes its
+    associative scan, and the port's Mamba recurrence runs step by step
+    (``models/ssm.py``), which has no chunk.
     """
     cfg: ModelConfig
     cass: CassandraConfig | None = None

@@ -1,25 +1,26 @@
-"""Model assembly for dense-FFN decoders with GQA or MLA attention (port
-of ``models/model.py``).
+"""Model assembly for decoders with GQA or MLA attention, Mamba-1 mixers
+and dense or MoE FFNs (port of ``models/model.py``).
 
 ``forward_prefill`` — full-prompt pass that writes the (packed) KV cache
-                      and returns last-position logits.
+                      and the SSM state, and returns last-position logits.
 ``forward_decode``  — q new tokens (1 for autoregressive/draft, γ+1 for
                       verification) against the cache; returns per-layer
-                      K/V updates for the engine to commit.
+                      K/V updates and SSM states for the engine to commit.
 ``forward_train``   — full-sequence pass with no cache, all positions'
                       logits: the Wanda calibration forward.
 
 Parameters keep the reference's tree: stacked ``(R, …)`` leaves per layer
 group, ``(in, out)`` weights. The reference's ``lax.scan`` over R is a
-Python loop here (``_scan_groups``). A block's attention is GQA (with
-``qk_norm`` / ``qkv_bias`` where the config says) or MLA (deepseek); its
-FFN is a dense MLP (``'m'``: SwiGLU, squared-ReLU or GELU) or top-k MoE
-(``'M'``, ``ffn.moe``; deepseek's first ``first_dense_layers`` are
-dense). The MoE aux (drops, balance loss) is summed over the blocks;
-``forward_train`` returns it and serving ignores it, as in the
-reference. SSM, encoder-decoder and frontend models are ROADMAP Queue 1
-item 5, training (the loss and its backward) too. Multi-token prediction
-heads (``mtp_depth``) feed only the reference's training loss, so serving
+Python loop here (``_scan_groups``). A block's mixer is attention
+(``'a'``: GQA, with ``qk_norm`` / ``qkv_bias`` where the config says, or
+MLA for deepseek) or a Mamba-1 SSM (``'s'``, ``models/ssm.py``); its FFN
+is a dense MLP (``'m'``: SwiGLU, squared-ReLU or GELU), top-k MoE (``'M'``,
+``ffn.moe``; deepseek's first ``first_dense_layers`` are dense) or none
+(``'-'``, falcon-mamba). The MoE aux (drops, balance loss) is summed over
+the blocks; ``forward_train`` returns it and serving ignores it, as in the
+reference. Encoder-decoder and frontend models are ROADMAP Queue 1 item
+5, training (the loss and its backward) too. Multi-token prediction heads
+(``mtp_depth``) feed only the reference's training loss, so serving
 neither builds nor reads them.
 """
 from __future__ import annotations
@@ -30,12 +31,13 @@ from repro_torch.configs.base import ModelConfig, layer_groups
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KC
 
 Params = dict
-_FAMILY = ("the port covers decoders with GQA or MLA attention and dense or "
-           "MoE FFNs; {what} is ROADMAP Queue 1 item 5")
+_FAMILY = ("the port covers decoders with GQA or MLA attention or Mamba-1 "
+           "mixers and dense or MoE FFNs; {what} is ROADMAP Queue 1 item 5")
 # The reference fails on this combination too (paged_gqa_packed reads the
 # Cassandra-1 exponent leaves: KeyError 'exp_words'); neither package has a
 # Cassandra-2 packed attention kernel.
@@ -51,10 +53,10 @@ C2_PACKED_ATTN = (
 # ---------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run: SSM mixers, encoder-decoder
-    models, modality frontends and the audio family. ``mtp_depth`` is
-    ignored (training only)."""
-    for what, off in (("SSM", cfg.sub_quadratic), ("enc-dec", cfg.is_encdec),
+    """Raise for what the port does not run: encoder-decoder models,
+    modality frontends and the audio family. ``mtp_depth`` is ignored
+    (training only)."""
+    for what, off in (("enc-dec", cfg.is_encdec),
                       ("a modality frontend", cfg.frontend),
                       ("the audio family", cfg.family == "audio")):
         if off:
@@ -101,6 +103,36 @@ def _init_mla(gen, r: int, cfg: ModelConfig, dtype, device, ones) -> dict:
                             dtype, device),
         "wo": _dense_init(gen, r, hv, cfg.d_model, dtype, device,
                           std=hv ** -0.5 / (2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def _init_ssm(gen, r: int, cfg: ModelConfig, dtype, device) -> dict:
+    """The reference's ``_init_ssm``: N(0, 1/n_in) projections (``out_proj``
+    scaled by 1/sqrt(2·n_layers), ``dt_proj`` N(0, 1/dt_r)), ``conv_w``
+    N(0, 1/d_conv), zero ``conv_b``, ``dt_bias`` the inverse softplus of a
+    dt drawn log-uniform in [1e-3, 1e-1], ``A_log = log(1..n)`` and ``D =
+    1``; the last three f32."""
+    di, n, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_r
+    f32 = torch.float32
+    lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(1e-1))
+    dt = torch.stack([torch.exp(
+        lo + (hi - lo) * torch.rand((di,), generator=gen, dtype=f32,
+                                    device=device)) for _ in range(r)])
+    a_log = torch.log(torch.arange(1, n + 1, dtype=f32, device=device))
+    return {
+        "in_proj": _dense_init(gen, r, cfg.d_model, 2 * di, dtype, device),
+        "out_proj": _dense_init(gen, r, di, cfg.d_model, dtype, device,
+                                std=di ** -0.5 / (2 * cfg.n_layers) ** 0.5),
+        "conv_w": torch.stack([_normal(gen, (cfg.ssm_conv, di),
+                                       cfg.ssm_conv ** -0.5, dtype, device)
+                               for _ in range(r)]),
+        "conv_b": torch.zeros((r, di), dtype=dtype, device=device),
+        "x_proj": _dense_init(gen, r, di, dtr + 2 * n, dtype, device),
+        "dt_proj": _dense_init(gen, r, dtr, di, dtype, device,
+                               std=dtr ** -0.5),
+        "dt_bias": torch.log(torch.expm1(dt)),
+        "A_log": a_log.expand(r, di, n).contiguous(),
+        "D": torch.ones((r, di), dtype=f32, device=device),
     }
 
 
@@ -159,7 +191,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     The tree is the reference's without its ``mtp`` head (training
     only)."""
     _check_dense(cfg)
-    hd = cfg.hd
     ones = lambda r, d: {"scale": torch.ones((r, d), dtype=torch.float32,
                                              device=device)}
     dec = []
@@ -167,9 +198,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         r = g.repeats
         gdict = {}
         for j, kind in enumerate(g.entries):
-            if cfg.mla:
-                attn = _init_mla(generator, r, cfg, dtype, device, ones)
+            if kind[0] == "s":
+                mixer = {"ssm": _init_ssm(generator, r, cfg, dtype, device)}
+            elif cfg.mla:
+                mixer = {"attn": _init_mla(generator, r, cfg, dtype, device,
+                                           ones)}
             else:
+                hd = cfg.hd
                 attn = {
                     "wq": _dense_init(generator, r, cfg.d_model,
                                       cfg.n_heads * hd, dtype, device,
@@ -188,7 +223,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 if cfg.qk_norm:
                     attn["q_norm"] = ones(r, hd)
                     attn["k_norm"] = ones(r, hd)
-            entry = {"norm1": ones(r, cfg.d_model), "attn": attn}
+                mixer = {"attn": attn}
+            entry = {"norm1": ones(r, cfg.d_model), **mixer}
             if kind[1] == "m":
                 entry["ffn"] = _init_mlp(generator, r, cfg, cfg.d_ff, dtype,
                                          device)
@@ -324,19 +360,45 @@ def _attn_entry_paged(rt: Runtime, bp: dict, x, positions, *, centry,
     return out, {"k": nk, "v": nv}
 
 
+def _ssm_entry(rt: Runtime, bp: dict, x, *, mode, centry, scratch):
+    """Mamba sub-block. Mode ``decode`` reads the state from ``scratch``
+    (the draft passes' copy) if given, else from the cache entry, and
+    returns ``h_all`` / ``conv_win`` beside the final state for the
+    engine's rollback; mode ``prefill`` returns the final ``(conv, h)``;
+    mode ``train`` runs from zero state and returns nothing. Returns
+    (out, upd)."""
+    state = None
+    if mode == "decode":
+        src = scratch if scratch is not None else centry
+        state = (src["conv"], src["h"])
+    out, (conv, h), extras = S.mamba(rt, bp["ssm"], x, state=state,
+                                     with_states=mode == "decode")
+    if mode not in ("decode", "prefill"):
+        return out, {}
+    upd = {"conv": conv, "h": h}
+    if extras is not None:
+        upd.update(extras)
+    return out, upd
+
+
 def _block(rt: Runtime, bp: dict, entry: str, x, positions, *, mode,
            causal=True, centry=None, scratch=None, length=None,
            scratch_len=None, book=None, s_max=0, ventry=None, table=None,
            suffix_from=None):
-    """One transformer block. Returns (x, cache_update, moe_aux): the aux
-    of an ``'M'`` block (``ffn.moe``), None for any other."""
+    """One block: an attention or Mamba mixer, then the FFN. Returns (x,
+    cache_update, moe_aux): the aux of an ``'M'`` block (``ffn.moe``),
+    None for any other."""
     h = L.norm(rt, bp["norm1"], x)
-    out, kv_upd = _attn_entry(rt, bp, h, positions, causal=causal,
-                              centry=centry, scratch=scratch, length=length,
-                              scratch_len=scratch_len, book=book,
-                              s_max=s_max, ventry=ventry, table=table,
-                              suffix_from=suffix_from)
-    upd = dict(kv_upd) if mode in ("decode", "prefill") else {}
+    if entry[0] == "s":
+        out, upd = _ssm_entry(rt, bp, h, mode=mode, centry=centry,
+                              scratch=scratch)
+    else:
+        out, kv_upd = _attn_entry(rt, bp, h, positions, causal=causal,
+                                  centry=centry, scratch=scratch,
+                                  length=length, scratch_len=scratch_len,
+                                  book=book, s_max=s_max, ventry=ventry,
+                                  table=table, suffix_from=suffix_from)
+        upd = dict(kv_upd) if mode in ("decode", "prefill") else {}
     x = x + out
     aux = None
     if entry[1] == "m":
@@ -468,11 +530,17 @@ def forward_prefill(rt: Runtime, params: Params, batch: dict, cache: dict):
 
 
 def _commit_prefill(rt: Runtime, cache, updates_groups, s, book):
-    """Encode the prompt's K/V (packed caches) and write them at offset 0."""
+    """Encode the prompt's K/V (packed caches) and write them at offset 0;
+    an SSM entry takes the prompt's final ``conv`` and ``h`` (new tensors,
+    as ``engine.commit`` gives them)."""
     cfg, cass = rt.cfg, rt.cass
     for gi, g_upd in enumerate(updates_groups):
         for ekey, upd in g_upd.items():
             centry = cache["dec"][gi][ekey]
+            if KC.is_ssm(upd):
+                centry["conv"] = upd["conv"].to(centry["conv"].dtype)
+                centry["h"] = upd["h"].to(centry["h"].dtype)
+                continue
             for name, d in KC.store_dims(cfg).items():
                 new = upd[name]                              # (R,B,S,…,d)
                 enc = (KC.encode_store(cass, new, d, book)
@@ -486,7 +554,8 @@ def _commit_prefill(rt: Runtime, cache, updates_groups, s, book):
 
 def materialize_cache_view(rt: Runtime, cache: dict) -> list | None:
     """Decode the packed cache's draft/target view once into dense stores
-    (slot rows, or whole pools of a paged cache).
+    (slot rows, or whole pools of a paged cache), for the attention
+    entries (an SSM entry's state is never packed).
 
     The speculative engine reuses it across the γ draft steps. Returns
     None for plain caches.
@@ -499,7 +568,9 @@ def materialize_cache_view(rt: Runtime, cache: dict) -> list | None:
     groups = []
     for gi, g in enumerate(layer_groups(cfg)):
         gdict = {}
-        for j, _entry in enumerate(g.entries):
+        for j, entry in enumerate(g.entries):
+            if entry[0] != "a":
+                continue
             centry = cache["dec"][gi][f"e{j}"]
             gdict[f"e{j}"] = {
                 nm: KC.read_store(cass, centry[nm], d, view, book)
@@ -515,7 +586,9 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
     """q new tokens against the cache. Returns (logits, updates).
 
     ``updates`` mirrors the cache groups: per attention entry the new
-    tokens' K/V (R,B,q,Hkv,hd) or MLA latents (R,B,q,·) for the engine to
+    tokens' K/V (R,B,q,Hkv,hd) or MLA latents (R,B,q,·), per SSM entry
+    {"conv", "h", "h_all", "conv_win"} (the state after all q tokens, h
+    after each, and the conv inputs they slide over) for the engine to
     commit. Rows are
     independent: per-row ``length`` offsets positions and masks. A paged
     cache's ``block_table`` addresses its pools; a target pass through the
@@ -550,6 +623,8 @@ def _cache_s_max(cfg: ModelConfig, cache: dict) -> int:
     mb = cache["block_table"].shape[1] if KC.is_paged(cache) else 1
     for g in cache["dec"]:
         for e in g.values():
+            if KC.is_ssm(e):                          # no token axis
+                continue
             leaf = next(iter(e.values()))
             if KC.is_packed(leaf):
                 leaf = leaf["spec"]["bitmap"]

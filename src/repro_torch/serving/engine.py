@@ -4,7 +4,8 @@ One ``spec_decode_step`` per cycle:
 
 1. γ draft steps with ``view="draft"``: every packed product goes through
    the draft-matmul kernel and the KV cache is read through its draft view
-   (decoded once per cycle). Draft K/V live in a γ-slot scratch.
+   (decoded once per cycle). Draft K/V live in a γ-slot scratch, a Mamba
+   layer's draft state in a copy of its committed state.
 2. One verify pass with ``view="target"`` over the γ+1 tokens: the exact
    weights, rebuilt one matrix at a time, and the exact K/V.
 3. Acceptance, greedy (exact match) or paper Eq. 1 rejection sampling
@@ -12,7 +13,8 @@ One ``spec_decode_step`` per cycle:
    every draw from the caller's ``torch.Generator``): per-row accepted
    counts ``n``.
 4. Commit: the target's K/V for the accepted prefix are encoded online and
-   written at per-row offsets; rejected slots stay masked stale data.
+   written at per-row offsets; rejected slots stay masked stale data. A
+   Mamba layer's state rolls back to each row's accepted position.
 
 The autoregressive baseline is ``autoregressive_step``: one token per
 full-model read, at width 1 like the reference.
@@ -187,27 +189,40 @@ def validate_request_slos(*, ttft_deadline_ms: float | None = None,
 def make_scratch(cfg: ModelConfig, cache: dict, gamma: int) -> list:
     """γ-slot scratch per attention entry and store, bf16: (R,B,γ,Hkv,hd)
     K and V for GQA, (R,B,γ,L) ``c`` and (R,B,γ,R) ``kr`` for MLA (the
-    batch comes from ``length``: paged pools have no batch axis)."""
+    batch comes from ``length``: paged pools have no batch axis). An SSM
+    entry's scratch is its committed ``conv`` and ``h`` (the tensors
+    themselves: nothing writes into them), which each draft step
+    replaces with its own (reference ``make_scratch``)."""
     b = cache["length"].shape[0]
     dev = cache["length"].device
-    heads = KC.store_heads(cfg)
     groups = []
-    for g in layer_groups(cfg):
-        groups.append({f"e{j}": {
-            nm: torch.zeros((g.repeats, b, gamma, *heads, d),
-                            dtype=torch.bfloat16, device=dev)
-            for nm, d in KC.store_dims(cfg).items()}
-            for j in range(len(g.entries))})
+    for gi, g in enumerate(layer_groups(cfg)):
+        gdict = {}
+        for j, entry in enumerate(g.entries):
+            centry = cache["dec"][gi][f"e{j}"]
+            if entry[0] == "s":
+                gdict[f"e{j}"] = {"conv": centry["conv"], "h": centry["h"]}
+                continue
+            gdict[f"e{j}"] = {
+                nm: torch.zeros((g.repeats, b, gamma, *KC.store_heads(cfg),
+                                 d), dtype=torch.bfloat16, device=dev)
+                for nm, d in KC.store_dims(cfg).items()}
+        groups.append(gdict)
     return groups
 
 
 def _scratch_write(scratch: list, updates: list, slot: int) -> list:
-    """Place draft-step updates (R,B,1,…) into scratch slot ``slot``."""
+    """Place draft-step updates (R,B,1,…) into scratch slot ``slot``; an
+    SSM entry takes the step's final ``conv`` and ``h``."""
     for gdict, gupd in zip(scratch, updates):
         for ekey, upd in gupd.items():
+            se = gdict[ekey]
+            if KC.is_ssm(upd):
+                se["conv"] = upd["conv"].to(se["conv"].dtype)
+                se["h"] = upd["h"]
+                continue
             for nm, new in upd.items():
-                gdict[ekey][nm][:, :, slot:slot + 1] = new.to(
-                    gdict[ekey][nm].dtype)
+                se[nm][:, :, slot:slot + 1] = new.to(se[nm].dtype)
     return scratch
 
 
@@ -215,12 +230,33 @@ def _scratch_write(scratch: list, updates: list, slot: int) -> list:
 # Commit (target-side cache update)
 # ---------------------------------------------------------------------------
 
+def _ssm_rollback(cfg: ModelConfig, centry: dict, upd: dict,
+                  n: torch.Tensor) -> None:
+    """Set an SSM entry to each row's state after its ``n[b]+1`` accepted
+    tokens (reference ``commit``): ``h = h_all[:, b, n[b]]`` and the conv
+    window ``conv_win[:, b, n[b]+1 : n[b]+d_conv]``, gathered on the
+    device (no host read of ``n``). The entry gets new tensors; the old
+    ones are left as they were."""
+    h_all, win = upd["h_all"], upd["conv_win"]      # (R,B,q,di,ns), (R,B,·,di)
+    r, b = h_all.shape[:2]
+    idx = n.to(torch.int64).reshape(1, b, 1, 1, 1).expand(
+        r, b, 1, *h_all.shape[3:])
+    centry["h"] = torch.gather(h_all, 2, idx)[:, :, 0]
+    dc = cfg.ssm_conv
+    widx = (n.to(torch.int64).reshape(1, b, 1, 1) + 1
+            + torch.arange(dc - 1, device=n.device).reshape(1, 1, -1, 1))
+    centry["conv"] = torch.gather(
+        win, 2, widx.expand(r, b, dc - 1, win.shape[3])).to(
+        centry["conv"].dtype)
+
+
 def commit(rt: Runtime, cache: dict, updates: list,
            n: torch.Tensor) -> dict:
     """Append target-recomputed K/V (MLA: latents) for n+1 accepted tokens
     per row: into each row's slot region, or through the block table into
-    the pool. The new ``length`` is a new tensor; the stores are written in
-    place."""
+    the pool; roll each SSM entry back to the state after the row's n+1
+    accepted tokens (``_ssm_rollback``). The new ``length`` is a new
+    tensor; the stores are written in place, the SSM state replaced."""
     cfg, cass = rt.cfg, rt.cass
     book = KC.cache_codebook(cache)
     length = cache["length"]
@@ -228,6 +264,9 @@ def commit(rt: Runtime, cache: dict, updates: list,
     for gi, gupd in enumerate(updates):
         for ekey, upd in gupd.items():
             centry = cache["dec"][gi][ekey]
+            if KC.is_ssm(upd):
+                _ssm_rollback(cfg, centry, upd, n)
+                continue
             for nm, d in KC.store_dims(cfg).items():
                 new = upd[nm]                                  # (R,B,q,…)
                 if book is not None:

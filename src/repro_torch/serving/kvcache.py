@@ -15,10 +15,16 @@ Layout (R = repeats of the layer group; every request owns a contiguous
 
   attn (GQA)  {"k": store, "v": store}    store leaf (R,B,S,Hkv,1,*)
   attn (MLA)  {"c": store, "kr": store}   latent + rope key, (R,B,S,1,*)
+  ssm         {"conv": (R,B,dc-1,di) bf16, "h": (R,B,di,n) f32}
 
 plain store = bf16 tensor; packed store = {"spec": {...}, "verif": {...}}.
 The cache also carries ``length`` (B,) int32 and, when packed, the book
 (``book_exp_of_rank``/``book_rank_of_exp``, 256 uint8 each).
+
+An SSM entry holds one row's recurrent state, never packed and with no
+token axis; the engine's commit replaces its two tensors with new ones
+(the state at each row's accepted position) where a store is appended to
+in place.
 
 Two layouts share the store codecs:
 
@@ -27,15 +33,18 @@ Two layouts share the store codecs:
 * **paged** (``init_paged_cache``) — stores hold a pool of fixed-size
   token blocks shared by all rows, leaves (R,NB,BS,…), addressed through a
   per-row ``block_table`` (B,MB) int32. Block 0 is the trash block
-  (``serving.blockpool``): unmapped table entries point at it.
+  (``serving.blockpool``): unmapped table entries point at it. SSM state
+  stays per row, (R,B,…), beside the pools.
 
 Appends write into the cache's tensors in place (the reference returns
 new arrays); callers never read a cache again after committing to it, so
 no copy of the stores is ever needed. The paged pool's whole-block moves
 (``copy_pool_blocks`` for the prefix cache's copy-on-write,
 ``spill_pool_blocks`` / ``restore_pool_blocks`` for preemption's host
-swap) are plain indexing over every leaf, in place too; none of them ever
-writes a new value into the trash block.
+swap) are plain indexing over every attention leaf, in place too; none of
+them ever writes a new value into the trash block, and none touches an
+SSM entry (the prefix cache and swap are refused for SSM models:
+``engine.validate_serving_knobs``).
 
 MLA stores pack like GQA's when their widths are multiples of 32 (the
 32-lane bitmap): DeepSeek-V3's ``c`` (512) and ``kr`` (64) both do, and
@@ -306,6 +315,8 @@ def copy_pool_blocks(cache: dict, src, dst) -> dict:
                       _block_index(src, dev))
     for g in cache["dec"]:
         for entry in g.values():
+            if is_ssm(entry):
+                continue
             for store in entry.values():
                 for leaf, _ in _zip_leaves(store, store):
                     raw = _raw(leaf)
@@ -318,7 +329,8 @@ def spill_pool_blocks(cache: dict, blocks) -> list:
     device half of a swap-out. ``blocks`` is a (K,) vector padded with
     ``TRASH_BLOCK``. Returns a tree mirroring ``cache["dec"]`` whose
     leaves are (R, K, BS, …) copies of the blocks, plain or packed (never
-    decoded); entries past the real blocks hold block 0."""
+    decoded); entries past the real blocks hold block 0. SSM entries are
+    left out: their state has no pool axis."""
     idx = _block_index(blocks, cache["length"].device)
 
     def take(leaf):
@@ -330,7 +342,8 @@ def spill_pool_blocks(cache: dict, blocks) -> list:
         return {z: {k: take(v) for k, v in store[z].items()}
                 for z in ("spec", "verif")}
     return [{ekey: {nm: gather(s) for nm, s in entry.items()}
-             for ekey, entry in g.items()} for g in cache["dec"]]
+             for ekey, entry in g.items() if not is_ssm(entry)}
+            for g in cache["dec"]]
 
 
 def restore_pool_blocks(cache: dict, blocks, data: list) -> dict:
@@ -345,6 +358,8 @@ def restore_pool_blocks(cache: dict, blocks, data: list) -> dict:
     pad = idx == TRASH_BLOCK
     for g, gd in zip(cache["dec"], data):
         for ekey, entry in g.items():
+            if is_ssm(entry):
+                continue
             for nm, store in entry.items():
                 for leaf, d in _zip_leaves(store, gd[ekey][nm]):
                     raw = _raw(leaf)
@@ -372,6 +387,11 @@ def restore_pool_blocks_marked(cache: dict, blocks, data: list):
 # Cache construction
 # ---------------------------------------------------------------------------
 
+def is_ssm(entry: dict) -> bool:
+    """Whether a cache (or update) entry is an SSM mixer's state."""
+    return "conv" in entry
+
+
 def store_dims(cfg: ModelConfig) -> dict:
     """Each attention entry's stores and their vector widths: GQA's
     per-head K and V, or MLA's latent ``c`` and rope key ``kr``."""
@@ -386,6 +406,13 @@ def store_heads(cfg: ModelConfig) -> tuple:
     return () if cfg.mla else (cfg.n_kv_heads,)
 
 
+def ssm_state_specs(cfg: ModelConfig, r: int, b: int) -> dict:
+    """(shape, dtype) table of one SSM entry's state: the conv window's
+    last (d_conv-1) inputs in bf16 and h in f32, per row."""
+    return {"conv": ((r, b, cfg.ssm_conv - 1, cfg.d_inner), torch.bfloat16),
+            "h": ((r, b, cfg.d_inner, cfg.ssm_state), torch.float32)}
+
+
 def _store_struct(cass, lead: tuple, d: int, packed: bool):
     """(shape, dtype) table of one store: a packed store's leaf shapes come
     from encoding one zero vector on the CPU."""
@@ -397,20 +424,34 @@ def _store_struct(cass, lead: tuple, d: int, packed: bool):
                 for k, t in one[z].items()} for z in ("spec", "verif")}
 
 
+def _dec_specs(cfg: ModelConfig, cass, b: int, s_max: int, packed: bool,
+               ssm_rows: int) -> list:
+    """Per layer group, each entry's table: attention stores with leading
+    (R, b, s_max) (a pool's (R, NB, BS)), SSM state for ``ssm_rows``
+    rows."""
+    if cfg.cross_attention:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's cache holds GQA, MLA and SSM entries "
+            "only; cross-attention caches are ROADMAP Queue 1 item 5")
+    dec = []
+    for g in layer_groups(cfg):
+        gdict = {}
+        for j, entry in enumerate(g.entries):
+            if entry[0] == "s":
+                gdict[f"e{j}"] = ssm_state_specs(cfg, g.repeats, ssm_rows)
+                continue
+            lead = (g.repeats, b, s_max, *store_heads(cfg))
+            gdict[f"e{j}"] = {nm: _store_struct(cass, lead, d, packed)
+                              for nm, d in store_dims(cfg).items()}
+        dec.append(gdict)
+    return dec
+
+
 def cache_specs(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
                 s_max: int, packed: bool) -> dict:
     """Plain shape table of the full cache: leaves are (shape, dtype)."""
-    if cfg.cross_attention or cfg.sub_quadratic:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's cache holds GQA and MLA stores only; "
-            "SSM and cross-attention caches are ROADMAP Queue 1")
-    cache: dict = {"dec": [], "length": ((b,), torch.int32)}
-    for g in layer_groups(cfg):
-        lead = (g.repeats, b, s_max, *store_heads(cfg))
-        cache["dec"].append({
-            f"e{j}": {nm: _store_struct(cass, lead, d, packed)
-                      for nm, d in store_dims(cfg).items()}
-            for j in range(len(g.entries))})
+    cache: dict = {"dec": _dec_specs(cfg, cass, b, s_max, packed, b),
+                   "length": ((b,), torch.int32)}
     if packed:
         cache["book_exp_of_rank"] = ((256,), torch.uint8)
         cache["book_rank_of_exp"] = ((256,), torch.uint8)
@@ -451,11 +492,16 @@ def paged_cache_specs(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
                       num_blocks: int, block_size: int, max_blocks: int,
                       packed: bool) -> dict:
     """Plain shape table of a paged cache: stores become block pools
-    (R,NB,BS,…) shared by all rows; ``block_table`` (B,MB) maps each row's
-    logical blocks to pool blocks; ``length`` stays (B,)."""
-    cache = cache_specs(cfg, cass, num_blocks, block_size, packed)
-    cache["length"] = ((b,), torch.int32)
-    cache["block_table"] = ((b, max_blocks), torch.int32)
+    (R,NB,BS,…) shared by all rows; SSM state stays per row (it has no
+    token axis to page); ``block_table`` (B,MB) maps each row's logical
+    blocks to pool blocks; ``length`` stays (B,)."""
+    cache: dict = {"dec": _dec_specs(cfg, cass, num_blocks, block_size,
+                                     packed, b),
+                   "length": ((b,), torch.int32),
+                   "block_table": ((b, max_blocks), torch.int32)}
+    if packed:
+        cache["book_exp_of_rank"] = ((256,), torch.uint8)
+        cache["book_rank_of_exp"] = ((256,), torch.uint8)
     return cache
 
 

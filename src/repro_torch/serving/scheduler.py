@@ -234,43 +234,62 @@ def _land(p: PendingCycle) -> tuple:
 # ---------------------------------------------------------------------------
 # Masked steps: a step runs every row; rows not active in it keep their
 # ``length`` (their KV writes land past it: masked stale data in the slot
-# layout, their own stale region or the trash block in the paged one).
+# layout, their own stale region or the trash block in the paged one) and
+# their SSM state.
 # ---------------------------------------------------------------------------
 
-def _freeze_rows(length0: torch.Tensor, cache: dict,
+def _ssm_entries(cache: dict) -> list:
+    """(entry, conv, h) of every SSM entry of ``cache``: the state tensors
+    a step starts from."""
+    return [(e, e["conv"], e["h"]) for g in cache["dec"] for e in g.values()
+            if KC.is_ssm(e)]
+
+
+def _freeze_rows(length0: torch.Tensor, ssm0: list, cache: dict,
                  active: torch.Tensor) -> dict:
+    """Pin the per-row live state of rows not active in the step: their
+    ``length``, and their SSM ``conv`` and ``h`` (reference
+    ``_freeze_rows``). ``engine.commit`` replaces an SSM entry's tensors
+    and never writes into them, so the tensors the step started from
+    (``ssm0``, from ``_ssm_entries``) are still intact: a ``torch.where``
+    on the device puts them back for inactive rows, inside the dispatched
+    work, with no copy beforehand and no host sync."""
     cache["length"] = torch.where(active, cache["length"], length0)
+    for e, conv0, h0 in ssm0:
+        act = active.reshape(1, -1, 1, 1)
+        e["conv"] = torch.where(act, e["conv"], conv0)
+        e["h"] = torch.where(act, e["h"], h0)
     return cache
 
 
 def _masked_spec(rt: Runtime, params, cache: dict, cur, active,
                  ecfg: EngineConfig, generator: torch.Generator):
-    length0 = cache["length"]
+    length0, ssm0 = cache["length"], _ssm_entries(cache)
     res, cache = spec_decode_step(rt, params, cache, cur, ecfg, generator)
-    return res, _freeze_rows(length0, cache, active)
+    return res, _freeze_rows(length0, ssm0, cache, active)
 
 
 def _masked_auto(rt: Runtime, params, cache: dict, cur, active):
-    length0 = cache["length"]
+    length0, ssm0 = cache["length"], _ssm_entries(cache)
     nxt, _, cache = autoregressive_step(rt, params, cache, cur)
-    return nxt, _freeze_rows(length0, cache, active)
+    return nxt, _freeze_rows(length0, ssm0, cache, active)
 
 
 def _masked_chunk(rt: Runtime, params, cache: dict, tokens, valid):
-    length0 = cache["length"]
+    length0, ssm0 = cache["length"], _ssm_entries(cache)
     last, cache = chunk_prefill_step(rt, params, cache, tokens, valid)
-    return last, _freeze_rows(length0, cache, valid > 0)
+    return last, _freeze_rows(length0, ssm0, cache, valid > 0)
 
 
 def _masked_unified(rt: Runtime, params, cache: dict, cur, chunk_tokens,
                     prefill_valid, decode_mask, ecfg: EngineConfig,
                     generator: torch.Generator):
-    length0 = cache["length"]
+    length0, ssm0 = cache["length"], _ssm_entries(cache)
     res, last, cache = unified_step(rt, params, cache, cur, chunk_tokens,
                                     prefill_valid, decode_mask, ecfg,
                                     generator)
     active = decode_mask | (prefill_valid > 0)
-    return res, last, _freeze_rows(length0, cache, active)
+    return res, last, _freeze_rows(length0, ssm0, cache, active)
 
 
 class Scheduler:
@@ -395,6 +414,8 @@ class Scheduler:
                      "peak_resident_tokens", "peak_reserved_tokens",
                      "peak_swapped_tokens"):
             self.metrics.gauge(peak, 0)
+        # slots admitted since the last push: their SSM state starts at 0
+        self._fresh_rows: set[int] = set()
         self._next_rid = 0
         self._next_swap_key = 0
         self._steps_since_check = 0
@@ -642,6 +663,7 @@ class Scheduler:
         req.token_cycles, req.token_walls = [], []
         self.slots[slot] = req
         self.lengths[slot] = 0
+        self._fresh_rows.add(slot)
         if self.paged:
             n_reserve, m, _ = plan
             # keyed by slot, not rid: slots are unique while occupied
@@ -1059,6 +1081,23 @@ class Scheduler:
         self.cache["length"] = self._to_device(self.lengths.astype(np.int32))
         if self.paged:
             self.cache["block_table"] = self._to_device(self.table)
+        if self._fresh_rows:
+            self._zero_ssm_rows(sorted(self._fresh_rows))
+            self._fresh_rows.clear()
+
+    def _zero_ssm_rows(self, slots: list) -> None:
+        """Start the SSM state of newly admitted rows from zero, on the
+        device in stream order (new tensors, as ``engine.commit`` gives
+        them). A recycled slot otherwise carries the state its previous
+        request left, where a fresh prompt must start from none (the
+        Engine's prefill does); the reference's scheduler carries it."""
+        ssm = _ssm_entries(self.cache)
+        if not ssm:
+            return
+        rows = self._to_device(np.asarray(slots, np.int64))
+        for e, conv, h in ssm:
+            e["conv"] = conv.index_fill(1, rows, 0)
+            e["h"] = h.index_fill(1, rows, 0)
 
     def _track_residency(self, cycle: float | None = None) -> None:
         resident = int(sum(self.lengths[r.slot] for r in self.slots

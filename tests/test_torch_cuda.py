@@ -1611,14 +1611,21 @@ def test_sampled_engine_and_scheduler_seeds_on_card(card):
 FAMILY_SHAPES = [(2560, 4096), (2560, 1024), (2560, 9728), (9728, 2560),
                  (4096, 2560), (6144, 6144), (6144, 1024), (6144, 100352),
                  (7168, 2048), (2048, 7168), (2048, 256), (12288, 28672)]
+# the Mamba mixers' products: x_proj at full width (N 288, a multiple of
+# 32 but not of 64) and at SMOKE (N 16: one half-filled column tile),
+# dt_proj (K 256: a single weight block), in_proj, out_proj, and the
+# vocabularies of falcon-mamba-7b and Jamba
+SSM_SHAPES = [(8192, 288), (256, 16), (256, 8192), (4096, 16384),
+              (8192, 4096), (4096, 65024), (4096, 65536)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES)
+@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES + SSM_SHAPES)
 def test_draft_matmul_at_the_families_shapes_on_card(card, n_in, n_out):
     """The main path's plan at M = 4 (a decode batch) and 16 (a verify
-    pass): y within rtol 2e-2 / atol 1e-3 of the plain version, the
-    decoded weight bit for bit through identity rows."""
+    pass), at the families' and the Mamba mixers' shapes: y within rtol
+    2e-2 / atol 1e-3 of the plain version, the decoded weight bit for bit
+    through identity rows."""
     args, kw = _card_operands((n_in, n_out), card, 4)
     gen = torch.Generator(device=card).manual_seed(n_in + n_out)
     for m in (4, 16):
@@ -1635,7 +1642,7 @@ def test_draft_matmul_at_the_families_shapes_on_card(card, n_in, n_out):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES)
+@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES + SSM_SHAPES)
 def test_target_decode_at_the_families_shapes_on_card(card, n_in, n_out):
     """Bit for bit the plain chain, mode-1 superblocks included, and the
     weight itself wherever the format is exact: a mode-1 region holds an
@@ -1786,3 +1793,114 @@ def test_family_engine_and_scheduler_on_card(card, arch):
         assert all(len(r.output) == 10 for r in reqs)
         outs[name] = [r.output for r in reqs]
     assert outs["fused"] == outs["alt"] == outs["sync"]
+
+
+# ---------------------------------------------------------------------------
+# The Mamba-1 family: the mixer on the card, the Engine and the Scheduler
+# ---------------------------------------------------------------------------
+
+def _ssm_smoke(card, arch):
+    """SMOKE falcon-mamba-7b or Jamba, C-1, random weights on the card, at
+    (Jamba) a capacity that never overflows."""
+    cfg = get_config(arch, smoke=True)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device=card).manual_seed(5)
+    plain = init_params(cfg, gen, device=card)
+    extra = {}
+    if cfg.n_experts:
+        extra["moe_capacity_factor"] = cfg.n_experts / cfg.n_experts_per_tok
+    return cfg, cass, plain, format_params(plain, cass), gen, extra
+
+
+@pytest.mark.cuda
+def test_mamba_on_card_matches_cpu(card):
+    """falcon-mamba's layer-0 mixer on the card against the same layer on
+    the CPU: a 20-token prefill and a 4-token decode from its state
+    (``with_states``). The bf16 outputs and conv state within a few bf16
+    ulps at their scale, h and h_all within 1e-2 relative (cuBLAS sums
+    the projections in another order); the rollback window's carried rows
+    bit for bit."""
+    from repro_torch.models import ssm as SS
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import _index
+    cfg, _, plain, _, gen, extra = _ssm_smoke(card, "falcon-mamba-7b")
+    rt = Runtime(cfg=cfg, **extra)
+    p = _index(plain["dec"][0]["e0"]["ssm"], 0)
+    pc = _tree_to(p, "cpu")
+    u = torch.randn((3, 20, cfg.d_model), generator=gen, device=card).to(
+        torch.bfloat16)
+    v = torch.randn((3, 4, cfg.d_model), generator=gen, device=card).to(
+        torch.bfloat16)
+
+    def close(a, b, rel):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float().cpu(), b.float(), rtol=0,
+                                   atol=rel * max(scale, 1e-3))
+
+    out, st, _ = SS.mamba(rt, p, u)
+    out_c, st_c, _ = SS.mamba(rt, pc, u.cpu())
+    close(out, out_c, 2 ** -6)
+    close(st[0], st_c[0], 2 ** -6)
+    close(st[1], st_c[1], 1e-2)
+    d, dst, ex = SS.mamba(rt, p, v, state=st, with_states=True)
+    d_c, _, ex_c = SS.mamba(rt, pc, v.cpu(),
+                            state=tuple(t.cpu() for t in st),
+                            with_states=True)
+    close(d, d_c, 2 ** -6)
+    close(ex["h_all"], ex_c["h_all"], 1e-2)
+    assert torch.equal(ex["conv_win"][:, :3], st[0])
+    assert torch.equal(ex["h_all"][:, -1], dst[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_ssm_engine_and_scheduler_on_card(card, arch):
+    """falcon-mamba-7b and Jamba at SMOKE width, C-1: the Engine's
+    speculative tokens equal autoregressive steps at the verify width on
+    every position (the verify pass's logits bit for bit), ``draft_matmul``
+    launched once per packed matrix per draft pass (x_proj 256 -> 16
+    among them); the plain model's shape-stable draft accepted on every
+    position; the paged Scheduler (attention kernels on) gives the same
+    tokens with fused == alternating and overlap on == off, and a
+    recycled slot the tokens its request gets alone."""
+    from repro_torch.core.packing import packed_paths
+    from repro_torch.serving.scheduler import Scheduler
+    cfg, cass, plain, packed, gen, extra = _ssm_smoke(card, arch)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
+                           device=card).to(torch.int32)
+    eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=3),
+                 device=card, rt_extra=extra)
+    per_pass = 0
+    for path in packed_paths(packed):
+        node = packed
+        for part in path.replace("[", ".").replace("]", "").split("."):
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        bm = node["w"]["spec"]["bitmap"]
+        per_pass += bm.shape[0] if bm.ndim == 4 else 1
+    DM.draft_matmul.launches = 0
+    spec, st = eng.generate({"tokens": prompt}, max_new=12)
+    assert DM.draft_matmul.launches == st["draft_passes"] * per_pass
+    assert AR.verify_gap(eng, prompt, 3, 4) == 0.0
+    toks, _ = AR.ar_steps(eng, prompt, 12, 4)
+    assert torch.equal(spec[:, :12].cpu(), toks.cpu())
+    stable = Engine(cfg, plain, cass=None,
+                    ecfg=EngineConfig(gamma=3, stable_draft=True),
+                    device=card, rt_extra=extra)
+    assert stable.generate({"tokens": prompt}, max_new=16)[1][
+        "acceptance"] == 1.0
+    def serve(prompts, **kw):
+        kw = {"num_slots": 3, **kw}
+        sched = Scheduler(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=3),
+                          s_max=48, paged=True, block_size=4, chunk_size=8,
+                          attn_kernel="on", rt_extra=extra, device=card, **kw)
+        reqs = [sched.submit(p, max_new=10) for p in prompts]
+        sched.run()
+        assert all(len(r.output) == 10 for r in reqs)
+        return [r.output for r in reqs]
+
+    prompts = list(prompt.cpu().numpy())
+    fused = serve(prompts)
+    assert serve(prompts, fused=False) == fused
+    assert serve(prompts, overlap=False) == fused
+    recycled = serve(prompts, num_slots=1)
+    assert recycled == [serve([p], num_slots=1)[0] for p in prompts]

@@ -52,11 +52,22 @@ def _gqa_shapes(cfg):
     return shapes
 
 
+def _ssm_shapes(cfg):
+    """(in, out) of a Mamba mixer's packed projections: in_proj, x_proj
+    (dt_r + 2 x ssm_state wide: 288 at full width, a multiple of 32 but
+    not of 64), dt_proj (dt_r = 256 inputs: one weight block) and
+    out_proj."""
+    d, di = cfg.d_model, cfg.d_inner
+    return {(d, 2 * di), (di, cfg.dt_r + 2 * cfg.ssm_state),
+            (cfg.dt_r, di), (di, d)}
+
+
 def _main_path_shapes():
     """(in, out) of every draft product of the registered models at full
     width: Llama-3-8B, the dense GQA family, DBRX (attention and lm_head;
-    its experts stay plain) and DeepSeek-V3 (MLA, its dense FFN and the
-    routed layers' shared expert)."""
+    its experts stay plain), DeepSeek-V3 (MLA, its dense FFN and the
+    routed layers' shared expert), falcon-mamba-7b and Jamba (its Mamba
+    mixers, attention, dense FFN and lm_head)."""
     shapes = set()
     for arch in ("llama3-8b", "qwen3-4b", "qwen3-1.7b", "qwen2.5-3b",
                  "nemotron-4-15b", "mistral-large-123b", "dbrx-132b"):
@@ -68,6 +79,10 @@ def _main_path_shapes():
                (d, ds.kv_lora_rank + ds.qk_rope_dim),
                (ds.n_heads * ds.v_head_dim, d), (d, ds.d_ff), (ds.d_ff, d),
                (d, ds.expert_ff), (ds.expert_ff, d), (d, ds.vocab_size)}
+    fm = get_config("falcon-mamba-7b")
+    shapes |= _ssm_shapes(fm) | {(fm.d_model, fm.vocab_size)}
+    jb = get_config("jamba-v0.1-52b")
+    shapes |= _ssm_shapes(jb) | _gqa_shapes(jb)
     return sorted(shapes)
 
 
@@ -93,9 +108,15 @@ def test_main_path_shapes_are_the_models():
     # (MLA kv_a is 512 + 64 = 576 wide; the shared expert 7168 <-> 2048),
     # qwen3-4b's 5 (n_heads x hd = 4096 != d_model 2560; tied: no
     # lm_head), qwen3-1.7b's 4, qwen2.5-3b's 3 new (wk/wv 2048 -> 256),
-    # nemotron-4-15b's 5 (relu2: up and down), mistral-large-123b's 5 and
-    # DBRX's lm_head (its attention shapes are nemotron's)
-    assert len(MAIN_SHAPES) == 37
+    # nemotron-4-15b's 5 (relu2: up and down), mistral-large-123b's 5,
+    # DBRX's lm_head (its attention shapes are nemotron's), falcon-mamba-
+    # 7b's 5 (in_proj 4096 -> 16384, x_proj 8192 -> 288, dt_proj 256 ->
+    # 8192, out_proj 8192 -> 4096, lm_head 4096 -> 65024) and Jamba's
+    # lm_head 4096 -> 65536 (its mixers are falcon-mamba's, its attention
+    # and FFN Llama's)
+    assert len(MAIN_SHAPES) == 43
+    assert {(4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
+            (4096, 65024), (4096, 65536)} <= set(MAIN_SHAPES)
     assert (7168, 576) in MAIN_SHAPES and (4096, 1024) in MAIN_SHAPES
     assert {(2560, 4096), (2560, 1024), (2560, 9728), (9728, 2560),
             (4096, 2560)} <= set(MAIN_SHAPES)

@@ -235,12 +235,14 @@ def test_layers_match_reference():
                                     dict(frontend="vision",
                                          frontend_tokens=16),
                                     dict(family="audio"),
-                                    dict(block_pattern=("sm",))])
+                                    dict(frontend="audio",
+                                         frontend_tokens=16)])
 def test_other_families_raise(change):
     """What the port does not run yet raises, naming the ROADMAP item:
-    encoder-decoder, a vision frontend, the audio family and SSM mixers
+    encoder-decoder, a vision or audio frontend and the audio family
     (MoE, MLA with experts and single-branch FFNs run since the dense-GQA
-    and MoE slice)."""
+    and MoE slice, Mamba mixers since the SSM slice:
+    ``test_torch_ssm.py``)."""
     cfg = dataclasses.replace(get_config("llama3-8b", smoke=True), **change)
     assert isinstance(cfg, ModelConfig)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
