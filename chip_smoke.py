@@ -187,14 +187,37 @@ these phases; any failure exits non-zero:
               with the attention kernels on, ``moe`` against
               ``moe_reference``, 0 drops at ``moe_capacity_factor =
               n_experts / n_experts_per_tok``;
-18. report  — ``kernels: [...]``, one JSON line per the kernels table,
+18. encdec   — the encoder-decoder audio family and the vision
+              frontend's backbone, each from a generator of its own, C-1
+              (γ=3), 4 × 128-token prompts × 32 new with N(0, 1) frontend
+              embeddings: (a) whisper-medium at full width, 24 encoder and
+              24 decoder layers, 1500 frames a request (193 ``draft_matmul``
+              launches a draft pass: self-attention's four, cross-
+              attention's wq and wo, up and down a layer, and lm_head
+              1024 -> 51865, an odd N; a prefill's 385 ``target_decode``:
+              the encoder's and the cross K/V projections too); (b)
+              phi-3-vision-4.2b at full width, 32 layers, head_dim 96 (the
+              KV stores encode and view at d = 96), 256 patches prepended:
+              ``draft_matmul`` and ``target_decode`` per shape as phase 4,
+              every packed matrix's target view bit for bit, ``kv_topk``,
+              ``kv_encode`` and ``kv_view`` at d = 96 on the prefill's K
+              and V and on edge rows bit for bit (phase 4c), phase 6's
+              Engine gates exact (spec == AR at the verify width on every
+              position), launches as the passes imply, the packed target
+              view's first-token logits within a tenth of the logit rms of
+              the plain model's, the Scheduler (and, for whisper, the paged
+              cache) refusing with the reference's text, whisper's cross
+              K/V written once at the prefill and unchanged after the
+              cycles; each model freed before the next;
+19. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 4c, 7-18 (4b and 4c read phase 6's
-prompts). Phases 6, 7, 9, 10, 12, 13, each run of 14 and the first of
-each pair in 15 set every kernel's launch count to 0 before their run
-and check it after against what the passes imply
-(the C-1 runs also count ``kv_encode``, one per KV store per commit,
+Phases run in the order 1-6, 4b, 4c, 7-19 (4b and 4c read phase 6's
+prompts); ``--phase 18`` runs phases 1, 2 and 18 alone (no report).
+Phases 6, 7, 9, 10, 12, 13, each run of 14, the first of each pair in 15
+and the Engine runs of 16-18 set every kernel's launch count to 0 before
+their run and check it after against what the passes imply (the C-1 runs
+also count ``kv_encode``, one per KV store per commit,
 ``kv_view``, one per KV store view, and ``unary_decode``, MLA's kv_b
 draft view; the C-2 runs ``kv_topk``, the KV encode's selection, and
 ``mx_view``, one per packed matrix and per KV store, view and pass).
@@ -735,15 +758,18 @@ def ar_steps(rt_t, params, cache, lg, n: int, width: int):
 
 
 def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
-               rt_extra: dict | None = None, exact: bool = False) -> dict:
-    """Phase 6 (and phase 16's and 17's Engine runs, under ``tag``): AR
-    steps at width 1 and at the verify width against one verify pass, the
-    draft side of one cycle, then ``Engine.generate`` autoregressive and
-    speculative; spec tokens against the verify-width AR run under the
+               rt_extra: dict | None = None, exact: bool = False,
+               embeds: dict | None = None) -> dict:
+    """Phase 6 (and phase 16's, 17's and 18's Engine runs, under ``tag``):
+    AR steps at width 1 and at the verify width against one verify pass,
+    the draft side of one cycle, then ``Engine.generate`` autoregressive
+    and speculative; spec tokens against the verify-width AR run under the
     near-tie rule (>= 90% of positions), launches as the passes imply.
     ``exact``: the verify-width AR steps must equal the verify pass bit
     for bit and the spec tokens the AR run's on every position.
-    ``rt_extra`` goes to the Engine's ``Runtime`` (MoE's capacity)."""
+    ``rt_extra`` goes to the Engine's ``Runtime`` (MoE's capacity);
+    ``embeds`` (a frontend's ``frame_embeds`` or ``patch_embeds``) to
+    every prefill."""
     import dataclasses
 
     import torch
@@ -755,7 +781,9 @@ def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
 
     b, s, n, gamma = args.requests, args.prompt_len, args.max_new, cass.gamma
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                                      device="cuda").to(torch.int32)}
+                                      device="cuda").to(torch.int32),
+              **(embeds or {})}
+    s_total = s + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
     eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=gamma),
                  device="cuda", rt_extra=rt_extra)
     per_pass = draft_matrices(packed)
@@ -765,7 +793,7 @@ def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
     # width-(γ+1) run goes on to all n tokens: the harness that holds the
     # spec tokens to an AR run with the verify pass's own numerics.
     rt_t = dataclasses.replace(eng.rt, view="target")
-    cache = KC.init_cache(cfg, cass, b, s + n + gamma + 1, packed=True,
+    cache = KC.init_cache(cfg, cass, b, s_total + n + gamma + 1, packed=True,
                           device="cuda")
     gap, wide = {}, None
     with torch.inference_mode():
@@ -865,8 +893,9 @@ def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
     # one target_decode per packed weight per target pass; one kv_view
     # per KV target view per layer per verify pass and per draft view of
     # the cache once per cycle; one kv_encode per store per commit
-    # (a layer group's stores encode and view in one launch each)
-    cyc, mats = st_sp["cycles"], packed_matrices(packed)
+    # (a layer group's stores encode and view in one launch each; the
+    # prefill decodes an encoder's weights too)
+    cyc, mats = st_sp["cycles"], pass_matrices(packed)
     layers, entries = attn_counts(cfg)
     check_launches(tag, codec, {
         "mx_decode": 0, "mx_view": 0, "kv_topk": 0,
@@ -874,7 +903,7 @@ def main_phase(packed, cfg, cass, gen, args, tag: str = "main",
         "kv_view": 2 * layers * cyc + 2 * entries * cyc,
         "unary_decode": (st_sp["draft_passes"] * layers
                          * _kv_b_pieces(packed) if cfg.mla else 0),
-        "target_decode": mats * (1 + cyc)})
+        "target_decode": packed_matrices(packed) + mats * cyc})
     say(f"[{tag}] spec: cycles {st_sp['cycles']}, acceptance "
         f"{st_sp['acceptance']:.3f}, tokens/cycle "
         f"{st_sp['tokens_per_cycle']:.3f}, {b * n / sp_s:.2f} tok/s "
@@ -1691,15 +1720,33 @@ def packed_matrices(packed) -> int:
     return sum(_n_layers(w) for _, w in _packed_weights(packed))
 
 
+def _in_pass(path: str) -> bool:
+    """Whether a decode pass reads the packed weight at ``path``: not an
+    encoder's (it runs at the prefill only), nor cross-attention's wk / wv
+    (the prefill caches the cross K/V)."""
+    return not path.startswith("/enc") and not path.endswith(
+        ("/xattn/wk/w", "/xattn/wv/w"))
+
+
+def pass_matrices(packed) -> int:
+    """Packed weight matrices a decode pass reads: one ``target_decode``
+    launch each per C-1 target pass (the prefill's are
+    ``packed_matrices``: whisper's encoder and cross K/V projections
+    too)."""
+    return sum(_n_layers(w) for path, w in _packed_weights(packed)
+               if _in_pass(path))
+
+
 def draft_matrices(packed) -> int:
     """``draft_matmul`` launches per draft pass: one per packed weight
-    matrix but MLA's kv_b, whose draft view ``resolve_weight`` decodes
-    (7 x layers + 1 for Llama-3-8B and DeepSeek-V3; 7 x layers for a
-    tied-embedding model such as qwen3-4b, whose unembed is the bf16
-    table; 4 x layers + 1 for DBRX, whose routed experts and router stay
-    unpacked)."""
+    matrix a pass reads (``pass_matrices``) but MLA's kv_b, whose draft
+    view ``resolve_weight`` decodes (7 x layers + 1 for Llama-3-8B and
+    DeepSeek-V3; 7 x layers for a tied-embedding model such as qwen3-4b,
+    whose unembed is the bf16 table; 4 x layers + 1 for DBRX, whose
+    routed experts and router stay unpacked; 8 x layers + 1 for whisper:
+    self-attention's four, cross-attention's wq and wo, up and down)."""
     return sum(_n_layers(w) for path, w in _packed_weights(packed)
-               if not path.endswith("/kv_b/w"))
+               if _in_pass(path) and not path.endswith("/kv_b/w"))
 
 
 def codec_launches() -> dict:
@@ -3484,10 +3531,11 @@ def sampling_phase(args, main: dict, mla: dict) -> None:
 # DeepSeek-V3's routed layers)
 # ---------------------------------------------------------------------------
 
-def family_setup(tag: str, cfg, seed: int) -> dict:
+def family_setup(tag: str, cfg, seed: int, keep_plain: bool = False) -> dict:
     """Random weights for ``cfg`` from ``seed`` on a generator of its own,
     packed in Cassandra-1 (γ=3; the routed experts and the router stay
-    plain, as the reference's walk leaves them), the plain tree freed.
+    plain, as the reference's walk leaves them), the plain tree freed
+    (``keep_plain``: returned as ``plain``).
     ``extra`` is the ``Runtime`` fields the bitwise gates run at: for an
     MoE model the capacity factor n_experts / n_experts_per_tok, at which
     no expert's capacity can overflow (overflow couples rows)."""
@@ -3508,25 +3556,31 @@ def family_setup(tag: str, cfg, seed: int) -> dict:
     packed = format_params(plain, cass)
     torch.cuda.synchronize()
     t_fmt = time.perf_counter() - t0
-    del plain
-    gc.collect()
-    torch.cuda.empty_cache()
+    if not keep_plain:
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
     mixer = (f"Mamba d_inner {cfg.d_inner}, state {cfg.ssm_state}, dt_r "
              f"{cfg.dt_r}, pattern {''.join(e[0] for e in cfg.block_pattern)}, "
              if cfg.sub_quadratic else "")
+    if cfg.frontend:
+        mixer += (f"{cfg.n_encoder_layers} encoder layers, cross-attention, "
+                  if cfg.is_encdec else "") + (
+            f"{cfg.frontend} frontend of {cfg.frontend_tokens} embeddings, "
+            f"head_dim {cfg.hd}, ")
     say(f"[{tag}] {cfg.name}, {cfg.n_layers} layers at full width (d "
         f"{cfg.d_model}, {mixer}{cfg.n_heads} heads over {cfg.n_kv_heads} "
         f"KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, experts "
         f"{cfg.n_experts} top-{cfg.n_experts_per_tok}): "
         f"{n_par / 1e9:.3f}e9 parameters; init {t_init:.1f} s, "
         f"format_params {t_fmt:.1f} s; {draft_matrices(packed)} draft_matmul "
-        f"launches a draft pass, {packed_matrices(packed)} target_decode a "
-        f"target pass")
+        f"launches a draft pass, {pass_matrices(packed)} target_decode a "
+        f"target pass ({packed_matrices(packed)} at the prefill)")
     say(format_line(params_nbytes(packed)).replace("[format]", f"[{tag}]"))
     extra = ({"moe_capacity_factor": cfg.n_experts / cfg.n_experts_per_tok}
              if cfg_has_moe(cfg) else {})
     return {"cfg": cfg, "cass": cass, "packed": packed, "gen": gen,
-            "extra": extra}
+            "extra": extra, **({"plain": plain} if keep_plain else {})}
 
 
 class DropCounter:
@@ -4229,6 +4283,235 @@ def jamba_phase(args) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 18: the encoder-decoder audio family and the vision frontend
+# ---------------------------------------------------------------------------
+
+def _encdec_weights_by_shape(packed, cfg) -> dict:
+    """A decode pass's products per shape: every attention projection
+    (whisper: self-attention's four and cross-attention's wq and wo; its
+    cross wk / wv run at the prefill only), the FFN's and lm_head
+    (whisper's 1024 -> 51865: an odd N)."""
+    e0, r = packed["dec"][0]["e0"], cfg.n_layers
+    ffn = e0["ffn"]
+    out = {"attn": (e0["attn"]["wq"]["w"],
+                    (6 if cfg.cross_attention else 4) * r)}
+    if "w_gate" in ffn:
+        out["w_gate/w_up"] = (ffn["w_gate"]["w"], 2 * r)
+    else:
+        out["w_up"] = (ffn["w_up"]["w"], r)
+    out["w_down"] = (ffn["w_down"]["w"], r)
+    out["lm_head"] = (packed["lm_head"]["w"], 1)
+    return out
+
+
+def _frontend_embeds(cfg, b: int, gen) -> dict:
+    """The frontend stub's input for ``b`` requests: frame (audio) or
+    patch (vision) embeddings, N(0, 1) in bf16 from ``gen``."""
+    import torch
+    key = "frame_embeds" if cfg.frontend == "audio" else "patch_embeds"
+    return {key: torch.randn((b, cfg.frontend_tokens, cfg.d_model),
+                             generator=gen, device="cuda").to(torch.bfloat16)}
+
+
+def encdec_refusals(tag: str, m: dict) -> None:
+    """The reference's refusals: the Scheduler takes token prompts only
+    (any frontend), a paged cache holds no cross-attention stores."""
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.scheduler import Scheduler
+    cfg, cass = m["cfg"], m["cass"]
+    checks = [("Scheduler", "scheduler admission is token-prompt only for "
+               "now", lambda: Scheduler(cfg, m["packed"], cass=cass,
+                                        device="cuda"))]
+    if cfg.cross_attention:
+        checks.append(("init_paged_cache", "paged caches do not support "
+                       "cross-attention stores yet",
+                       lambda: KC.init_paged_cache(cfg, cass, 2, 9, 16, 4,
+                                                   True, device="cuda")))
+    for what, text, make in checks:
+        try:
+            make()
+        except NotImplementedError as e:
+            if str(e) != text:
+                fail(f"{tag}: {what} refused with {str(e)!r}, not the "
+                     f"reference's {text!r}")
+            say(f"[{tag}] {what} refused, as the reference: {text!r}")
+        else:
+            fail(f"{tag}: {what} did not refuse {cfg.name}")
+
+
+def plain_first_token(tag: str, m: dict, prompt: dict, lg) -> float:
+    """The plain model's first-token logits (bf16 weights, a plain cache)
+    against the packed target view's (``lg``, the Engine run's prefill):
+    phase 7's rule, max abs diff < 0.1 x the logit rms. Returns the
+    gap."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import kvcache as KC
+    cfg = m["cfg"]
+    b, s = prompt["tokens"].shape
+    s_total = s + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    cache = KC.init_cache(cfg, None, b, s_total + 1, packed=False,
+                          device="cuda")
+    with torch.inference_mode():
+        lp, _ = M.forward_prefill(Runtime(cfg=cfg, view="plain"),
+                                  m["plain"], prompt, cache)
+    del cache
+    ref = lg.numpy().astype(np.float64)
+    gap = float(np.abs(lp[:, -1].double().cpu().numpy() - ref).max())
+    lrms = float(np.sqrt((ref ** 2).mean()))
+    say(f"[{tag}] first-token logits, packed target view vs the plain "
+        f"model: max abs diff {gap:.4g} (limit {0.1 * lrms:.4g} = 0.1 x the "
+        f"logit rms {lrms:.4g})")
+    if not gap < 0.1 * lrms:
+        fail(f"{tag}: the packed target view's first-token logits differ "
+             f"from the plain model's by {gap}")
+    return gap
+
+
+def cross_kv_check(tag: str, m: dict, prompt: dict, n: int) -> int:
+    """whisper's cross K/V: the prefill writes them (bit for bit the
+    xattn projections of the encoder output, first and last layer, plain
+    bf16), and speculative cycles until every row holds ``n`` tokens
+    leave their bits unchanged. Returns the cycles run."""
+    import torch
+    from repro_torch.models import attention as A, model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import engine as E, kvcache as KC
+    cfg, cass, packed = m["cfg"], m["cass"], m["packed"]
+    b, s = prompt["tokens"].shape
+    ecfg = E.EngineConfig(gamma=cass.gamma)
+    rt = Runtime(cfg=cfg, cass=cass, view="target")
+    cache = KC.init_cache(cfg, cass, b, s + n + cass.gamma + 1, packed=True,
+                          device="cuda")
+    with torch.inference_mode():
+        lg, cache = M.forward_prefill(rt, packed, prompt, cache)
+        enc = M._run_encoder(rt, packed, prompt["frame_embeds"])
+        cross = cache["cross"][0]["e0"]
+        for r in (0, cfg.n_layers - 1):
+            ck, cv = A.gqa_project_kv(
+                rt, M._index(packed["dec"][0]["e0"]["xattn"], r), enc, None,
+                "xattn")
+            if not (_same_bits(ck, cross["ck"][r])
+                    and _same_bits(cv, cross["cv"][r])):
+                fail(f"{tag}: the cached cross K/V of layer {r} differ from "
+                     f"the projections of the encoder output")
+        del enc
+        before = {k: t.clone() for k, t in cross.items()}
+        cur = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+        held, cycles = torch.ones(b, dtype=torch.int64), 0
+        while int(held.min()) < n:
+            res, cache = E.spec_decode_step(rt, packed, cache, cur, ecfg)
+            cur = res.next_token[:, None]
+            held += res.n_accepted.cpu().to(torch.int64) + 1
+            cycles += 1
+    same = all(_same_bits(cache["cross"][0]["e0"][k], before[k])
+               for k in before)
+    say(f"[{tag}] cross K/V ({tuple(before['ck'].shape)} x 2, bf16, "
+        f"{2 * before['ck'].numel() * 2 / 2**20:.1f} MiB): written at the "
+        f"prefill as the xattn projections of the encoder output, bit for "
+        f"bit; unchanged after {cycles} speculative cycles: {same}")
+    if not same:
+        fail(f"{tag}: the cross K/V changed after the prefill")
+    return cycles
+
+
+def d96_codec_rows(m: dict, prompt: dict, gen) -> list:
+    """kv_topk, kv_encode and kv_view (draft, target) at d = 96 on the
+    prefill's layer-0 K and V (patches and text) and on edge rows (ties,
+    +-0, NaN payloads, inf, subnormals, a 2^+-12 spread), bit for bit
+    against their plain versions."""
+    import torch
+    from repro_torch.models import attention as A, layers as L, model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import kvcache as KC
+    cfg, cass, packed = m["cfg"], m["cass"], m["packed"]
+    d = cfg.hd
+    rt = Runtime(cfg=cfg, cass=cass, view="target")
+    p0 = M._index(packed["dec"][0]["e0"], 0)
+    with torch.inference_mode():
+        x = M._embed_inputs(rt, packed, prompt["tokens"],
+                            prompt.get("patch_embeds"))
+        x = L.norm(rt, p0["norm1"], x)
+        k, v = A.gqa_project_kv(rt, p0["attn"], x, torch.arange(
+            x.shape[1], device="cuda"))
+    del x
+    book = KC.default_kv_codebook("cuda")
+    rows = []
+    for case, t in (("d96 prefill K (layer 0)", k),
+                    ("d96 prefill V (layer 0)", v),
+                    ("d96 edge rows", edge_rows(gen, 4096, d))):
+        rows += kv_codec_rows(cass, t, d, case, book)
+    return rows
+
+
+def encdec_model(tag: str, cfg, seed: int, args) -> dict:
+    """One model of phase 18, C-1 (γ=3), from ``seed``: ``draft_matmul``
+    and ``target_decode`` per shape on its own weights, every packed
+    matrix's target view bit for bit (whisper's lm_head among them), at
+    d = 96 the KV codec's rows; the Engine on 4 requests with the
+    frontend's embeddings (``main_phase``, exact: spec == AR at the
+    verify width on every position), the packed target view's first
+    tokens against the plain model, the refusals, and (whisper) the cross
+    K/V written once. Frees the model."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    m = family_setup(tag, cfg, seed, keep_plain=True)
+    cass, packed = m["cass"], m["packed"]
+    kgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    by_shape = _encdec_weights_by_shape(packed, cfg)
+    draft = draft_shapes(by_shape, cass, kgen, f"{tag}-kernels")
+    err = target_all_bitwise(packed, cass, f"{tag}-kernels")
+    target = target_shapes(by_shape, cass, kgen, f"{tag}-kernels",
+                           args.requests * (cass.gamma + 1))
+    embeds = _frontend_embeds(cfg, args.requests, m["gen"])
+    eng = main_phase(packed, cfg, cass, m["gen"], args, tag=tag, exact=True,
+                     embeds=embeds)
+    prompt = {"tokens": eng["prompt"], **embeds}
+    gap = plain_first_token(tag, m, prompt, eng["lg"])
+    del m["plain"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    codec = (d96_codec_rows(m, prompt, kgen) if cfg.hd == 96 else [])
+    if cfg.cross_attention:
+        cross_kv_check(tag, m, prompt, args.max_new)
+    encdec_refusals(tag, m)
+    del m, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] {cfg.name} in {wall:.1f} s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    return {"err": max(err, draft["max_abs_err"]), "eng": eng,
+            "codec": codec, "gap": gap, "wall": wall, "peak": peak,
+            "target": target, "draft": draft}
+
+
+def encdec_phase(args) -> dict:
+    """Phase 18: whisper-medium at full width (24 + 24 layers, 1500
+    frames) and phi-3-vision-4.2b at full width (32 layers, head_dim 96,
+    256 patches), one after the other."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = {"whisper": encdec_model("whisper", get_config("whisper-medium"),
+                                   args.seed + 40, args),
+           "phi3v": encdec_model("phi3v", get_config("phi-3-vision-4.2b"),
+                                 args.seed + 42, args)}
+    say(f"[encdec] phase 18 in {time.perf_counter() - t0:.1f} s (peak "
+        f"{max(v['peak'] for v in out.values()) / 2**30:.2f} GiB); launches "
+        f"of the Engine runs: " + "; ".join(
+            f"{k} {v['eng']['launches']} draft_matmul, "
+            f"{v['eng']['codec']['target_decode']} target_decode, "
+            f"{v['eng']['codec']['kv_view']} kv_view, "
+            f"{v['eng']['codec']['kv_encode']} kv_encode"
+            for k, v in out.items()))
+    return out
+
+
 def run(args) -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4268,6 +4551,11 @@ def run(args) -> None:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build]   {b.name}: {line.strip()}")
+    if args.phase == 18:
+        encdec_phase(args)
+        say(f"[done] phase 18 alone in {time.perf_counter() - t_start:.1f} "
+            f"s (no kernels line: the other phases did not run)")
+        return
 
     # 3. setup
     cfg = get_config("llama3-8b")
@@ -4387,8 +4675,13 @@ def run(args) -> None:
             f"{v['eng']['codec']['kv_encode']} kv_encode"
             for k, v in ssm.items()))
     td_err = max([td_err] + [v["err"] for v in ssm.values()])
+    # 18. the encoder-decoder audio family and the vision frontend:
+    # whisper-medium and phi-3-vision-4.2b at full width
+    encdec = encdec_phase(args)
+    codec += encdec["phi3v"]["codec"]
+    td_err = max([td_err] + [v["err"] for v in encdec.values()])
 
-    # 18. report
+    # 19. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
         '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
         '"target_decode", "mx_view", "kv_encode", "kv_view"]')
@@ -4509,6 +4802,9 @@ def main() -> None:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--phase", type=int, choices=[18], default=None,
+                    help="run the device, build and this phase only (no "
+                    "kernels or ok line)")
     run(ap.parse_args())
 
 

@@ -4,8 +4,9 @@ The port knows the paper's two models (llama3-8b, qwen3-4b), the dense
 GQA family (qwen3-1.7b, qwen2.5-3b, nemotron-4-15b, mistral-large-123b),
 the MoE models (dbrx-132b, deepseek-v3-671b with MLA) and the Mamba-1
 models (falcon-mamba-7b, and jamba-v0.1-52b, a hybrid of Mamba, GQA and
-MoE layers). The encoder-decoder and frontend families join with ROADMAP
-Queue 1 item 5.
+MoE layers), the encoder-decoder audio model (whisper-medium) and the
+vision-frontend backbone (phi-3-vision-4.2b): every architecture the
+reference registers.
 ``smoke=True`` returns the reduced same-family config the CPU tests use.
 """
 from __future__ import annotations
@@ -27,6 +28,8 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-medium": "whisper_medium",
     # the paper's own evaluation models
     "llama3-8b": "llama3_8b",
     "qwen3-4b": "qwen3_4b",
@@ -35,8 +38,6 @@ _MODULES = {
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port knows "
-                       f"{sorted(_MODULES)} (encoder-decoder and frontend "
-                       "models: ROADMAP Queue 1 item 5)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -20,7 +20,9 @@
 // The selection. For a lane that is not NaN the 15-bit key `bits & 0x7FFF`
 // orders |v| exactly as the f32 compare does (inf and subnormals included; an
 // integer compare, so no flush-to-zero can enter). One warp owns one vector,
-// lane l the D/32 values at positions i*32 + l. With kk = min(keep, lanes
+// lane l the D/32 values at positions i*32 + l (D any multiple of 32 the
+// switch instantiates: 32, 64, 96, 128, 256, 512; nothing below assumes a
+// power of two). With kk = min(keep, lanes
 // that are not NaN) the warp finds T, the kk-th largest key, by a radix
 // select over the 15 key bits: per bit one warp-wide count
 // (__reduce_add_sync of each lane's count) of the keys that match T's bits so
@@ -375,6 +377,7 @@ extern "C" int kv_topk_launch(const void* v, void* bitmap, void* kept,
   switch (D) {
     case 32: kv_topk_kernel<1><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
     case 64: kv_topk_kernel<2><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
+    case 96: kv_topk_kernel<3><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
     case 128: kv_topk_kernel<4><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
     case 256: kv_topk_kernel<8><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
     case 512: kv_topk_kernel<16><<<blocks, kThreads, 0, s>>>(vp, bp, kp, pp, rows, keep); break;
@@ -425,6 +428,7 @@ extern "C" int kv_encode_launch(const void* v, const void* rank_of_exp,
   switch (D) {
     case 32: e = launch_encode<1>(a, s); break;
     case 64: e = launch_encode<2>(a, s); break;
+    case 96: e = launch_encode<3>(a, s); break;
     case 128: e = launch_encode<4>(a, s); break;
     case 256: e = launch_encode<8>(a, s); break;
     case 512: e = launch_encode<16>(a, s); break;

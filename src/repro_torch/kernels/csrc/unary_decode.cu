@@ -103,11 +103,13 @@
 // contiguous, into shared memory with cp.async (16-byte pieces on 16-byte
 // aligned leaves, 4-byte on 4-byte aligned ones, bytes otherwise; nothing
 // past the run is read); then the vectors of the run are decoded from
-// shared memory by lane groups: D/16 lanes a vector (8 at D = 128, so a
-// warp decodes 4 at once), lane g owning 16 output positions (8 g .. 8 g + 7
-// and D/2 + 8 g .., so that a store instruction writes each group's half
-// vector as contiguous bytes, not half sectors at a 32-byte stride) and a
-// run of ceil(keep / (D/16)) kept values. A vector's fixed costs (its
+// shared memory by lane groups: G lanes a vector, D/16 rounded up to a
+// power of two (the width of the group shuffles must be one: 8 at D = 96
+// and at D = 128, so a warp decodes 4 at once), lane g < D/16 owning 16
+// output positions (8 g .. 8 g + 7 and D/2 + 8 g .., so that a store
+// instruction writes each group's half vector as contiguous bytes, not
+// half sectors at a 32-byte stride; at D = 96 lanes 6 and 7 own none) and
+// every lane a run of ceil(keep / G) kept values. A vector's fixed costs (its
 // scans, its run's start, the loop) are shared by 16 positions a lane, where
 // a warp a vector spent them on D/32. A KV region is short (8 words at D =
 // 128), so the position pass above, which walks each word's ones on the
@@ -862,6 +864,11 @@ __device__ __forceinline__ void kv_kept_run(const uint32_t* SM,
   }
 }
 
+// kv_view's lanes a vector: D/16 rounded up to a power of two.
+__host__ __device__ constexpr int kv_group_lanes(int d) {
+  return d <= 32 ? 2 : d <= 64 ? 4 : d <= 128 ? 8 : d <= 256 ? 16 : 32;
+}
+
 // Inclusive sum over the G lanes of a lane group (gl: the lane's index in
 // its group).
 template <int G>
@@ -885,8 +892,10 @@ __device__ __forceinline__ void kv_view_run(const KvView& a,
                                             int j0, int n, int* incl,
                                             uint16_t* vals) {
   constexpr int D = DPL * 32;
-  constexpr int G = D / 16, NG = 32 / G;
+  constexpr int GP = D / 16;                  // lanes that own positions
+  constexpr int G = kv_group_lanes(D), NG = 32 / G;
   const int K = a.keep, P = D - K;
+  const bool owner = gl < GP;
   for (int vb = warp * NG; vb < nv; vb += kWarps * NG) {
     const bool live = vb + grp < nv;
     const int v = live ? vb + grp : vb;
@@ -944,13 +953,14 @@ __device__ __forceinline__ void kv_view_run(const KvView& a,
     // by one group scan of both halves' __popc counts. A set bit reads the
     // next kept value, a clear one the next pruned value (the target view)
     // or the zero at [D]; indices clamped at K - 1 and P - 1, as
-    // `desparsify` clamps them, only where a bitmap needs it.
-    uint32_t bits[2];
+    // `desparsify` clamps them, only where a bitmap needs it. A lane past
+    // the D/16 owners adds nothing to the scans and stores nothing.
+    uint32_t bits[2] = {0u, 0u};
     int cnt = 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = h * (D / 2) + 8 * gl;
-      bits[h] = (BM[p >> 5] >> (p & 31)) & 0xFFu;
+      if (owner) bits[h] = (BM[p >> 5] >> (p & 31)) & 0xFFu;
       cnt |= __popc(bits[h]) << (16 * h);
     }
     const int in = group_incl_sum<G>(cnt, gl);
@@ -959,7 +969,7 @@ __device__ __forceinline__ void kv_view_run(const KvView& a,
     const bool has_p = TARGET && P > 0;
     uint4* out = reinterpret_cast<uint4*>(a.out + (v0 + v) * D);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < 2 && owner; ++h) {
       const int p0 = h * (D / 2) + 8 * gl;
       int kb = h == 0 ? ex0 & 0xFFFF : half + (ex0 >> 16);
       const int kend = kb + __popc(bits[h]);
@@ -982,7 +992,7 @@ __device__ __forceinline__ void kv_view_run(const KvView& a,
         }
       }
       if (live)
-        out[h * G + gl] = make_uint4(__byte_perm(o[0], o[1], 0x5410),
+        out[h * GP + gl] = make_uint4(__byte_perm(o[0], o[1], 0x5410),
                                      __byte_perm(o[2], o[3], 0x5410),
                                      __byte_perm(o[4], o[5], 0x5410),
                                      __byte_perm(o[6], o[7], 0x5410));
@@ -1002,17 +1012,18 @@ __device__ __forceinline__ void kv_stage_run(const KvView& a, uint8_t* stage,
   asm volatile("cp.async.commit_group;" ::);
 }
 
-// A group of G = D/16 lanes owns a vector (lane gl: output positions
-// 8 gl .. 8 gl + 7 and D/2 + 8 gl .., and kept values gl * krun ..), so a
-// warp decodes 32/G vectors at once. Every lane runs every group step, for a vector of the
-// run or, past its end, again for the warp's first (nothing stored).
+// A group of G lanes (`kv_group_lanes`) owns a vector (lane gl < D/16:
+// output positions 8 gl .. 8 gl + 7 and D/2 + 8 gl ..; every lane: kept
+// values gl * krun ..), so a warp decodes 32/G vectors at once. Every lane
+// runs every group step, for a vector of the run or, past its end, again
+// for the warp's first (nothing stored).
 // The grid is persistent (`kv_view_plan`): CTA b decodes runs b, b + grid,
 // ... through a two-stage ring, the next run's copies in flight while the
 // current one decodes.
 template <int DPL, bool TARGET, bool FAST, int RUN>
 __global__ void __launch_bounds__(kThreads, kMinCtas) kv_view_kernel(KvView a) {
   constexpr int D = DPL * 32;
-  constexpr int G = D / 16, NG = 32 / G;
+  constexpr int G = kv_group_lanes(D), NG = 32 / G;
   extern __shared__ __align__(16) uint8_t kv_smem[];
   __shared__ uint8_t book[32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1073,15 +1084,16 @@ cudaError_t launch_kv_view_run(const KvView& a, bool target, int ctas,
   return cudaGetLastError();
 }
 
-// A lane's run of kept values is ceil(keep / (D/16)) <= 16. The paper's
-// keep with 4-bit codes (0.6 D in multiples of 16: runs of 10 from D = 128
-// up, 8 below) has a kernel of its exact run; other formats take runs of up
-// to 16 with a bound.
+// A lane's run of kept values is ceil(keep / G) <= 16. The paper's keep
+// with 4-bit codes (0.6 D in multiples of 16: runs of 10 from D = 128 up, 8
+// below) has a kernel of its exact run; other formats take runs of up to
+// 16 with a bound.
 template <int DPL>
 cudaError_t launch_kv_view(const KvView& a, bool target, int ctas,
                            size_t smem_bytes, cudaStream_t stream) {
   constexpr int kPaperRun = DPL >= 4 ? 10 : 8;
-  const int krun = (a.keep + DPL * 2 - 1) / (DPL * 2);
+  constexpr int G = kv_group_lanes(DPL * 32);
+  const int krun = (a.keep + G - 1) / G;
   if (a.trunc == 4 && krun <= kPaperRun)
     return launch_kv_view_run<DPL, kPaperRun>(a, target, ctas, smem_bytes,
                                               stream);
@@ -1203,7 +1215,8 @@ extern "C" int target_decode_launch(
 // ·) flattened) -> out (rows, D) bf16, its draft (target == 0) or target
 // view. Spec: bitmap (rows,D/32) u32 · signmant (rows,sw) u32 · exp_words
 // (rows,ew) u32 · mode, emax (rows,) u8; book: exp_of_rank (>= 32) u8;
-// keep a multiple of 16 (pruning.KV_KEEP_MULTIPLE), D in 32 .. 512.
+// keep a multiple of 16 (pruning.KV_KEEP_MULTIPLE), D in {32, 64, 96, 128,
+// 256, 512}.
 // Target only: mant_lo (rows,mw) u32 (null when trunc == 0) · corr
 // (rows,keep) u8 or null · pruned (rows,D-keep) 16-bit patterns (null when
 // keep == D). sw, ew, mw are ceil(keep * width / 32) for widths 8 - trunc,
@@ -1248,8 +1261,9 @@ extern "C" int kv_view_launch(const void* bitmap, const void* signmant,
     off += ((chunk * a.bpv[r] + 15) & ~15) + 16;
   }
   a.stage_bytes = off;
-  // per lane group (D/16 lanes, one vector at a time): the unary region's
-  // per-word counts, then the kept and pruned values and a zero
+  // per lane group (kv_group_lanes(D) lanes, one vector at a time): the
+  // unary region's per-word counts, then the kept and pruned values and a
+  // zero
   a.scratch_bytes = (4 * a.ew + 2 * (D + 1) + 15) & ~15;
   a.book = static_cast<const uint8_t*>(book);
   a.out = static_cast<uint16_t*>(out);
@@ -1259,7 +1273,8 @@ extern "C" int kv_view_launch(const void* bitmap, const void* signmant,
   a.trunc = trunc;
   a.eb = exp_bits;
   const size_t smem_bytes = 2 * static_cast<size_t>(a.stage_bytes) +
-                            static_cast<size_t>(kThreads / (D / 16)) *
+                            static_cast<size_t>(kThreads /
+                                                kv_group_lanes(D)) *
                                 a.scratch_bytes;
   if (smem_bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1268,6 +1283,7 @@ extern "C" int kv_view_launch(const void* bitmap, const void* signmant,
   switch (D) {
     case 32: e = launch_kv_view<1>(a, t, ctas, smem_bytes, s); break;
     case 64: e = launch_kv_view<2>(a, t, ctas, smem_bytes, s); break;
+    case 96: e = launch_kv_view<3>(a, t, ctas, smem_bytes, s); break;
     case 128: e = launch_kv_view<4>(a, t, ctas, smem_bytes, s); break;
     case 256: e = launch_kv_view<8>(a, t, ctas, smem_bytes, s); break;
     case 512: e = launch_kv_view<16>(a, t, ctas, smem_bytes, s); break;

@@ -41,7 +41,7 @@ import torch
 from repro_torch.core import bitops
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128, 256, 512)  # one lane holds d/32 of a vector
+HEAD_DIMS = (32, 64, 96, 128, 256, 512)  # a lane holds d/32 of a vector
 _PAIRS_PER_CHUNK = 1 << 26           # pairwise compares per row chunk
 
 

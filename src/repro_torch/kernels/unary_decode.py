@@ -204,7 +204,7 @@ target_decode.launches = 0
 # kv_view: a C-1 KV store's draft or target view in one launch
 # ---------------------------------------------------------------------------
 
-KV_HEAD_DIMS = (32, 64, 128, 256, 512)
+KV_HEAD_DIMS = (32, 64, 96, 128, 256, 512)
 
 
 KV_VIEW_CTAS = 4 * build.SM_COUNT      # one wave: 4 CTAs an SM holds
@@ -213,13 +213,14 @@ KV_VIEW_CTAS = 4 * build.SM_COUNT      # one wave: 4 CTAs an SM holds
 def kv_view_plan(rows: int, d: int) -> tuple[int, int]:
     """(vectors per run, CTAs) for a store of ``rows`` vectors of ``d``
     values. A run is a multiple of 16 vectors (so every leaf's run starts
-    on a 16-byte boundary), at most 8192 values (two vectors for each of
-    a CTA's lane groups of d/16 lanes), and small enough that the runs
-    fill ``KV_VIEW_CTAS`` CTAs where the store allows. The CTAs are
-    persistent: CTA c decodes runs c, c + CTAs, ...; run q holds vectors
-    [q * chunk, (q + 1) * chunk)."""
+    on a 16-byte boundary), at most 8192 values (at a power-of-two ``d``
+    two vectors for each of a CTA's lane groups of d/16 lanes; at d = 96,
+    80 vectors), and small enough that the runs fill ``KV_VIEW_CTAS`` CTAs
+    where the store allows. The CTAs are persistent: CTA c decodes runs
+    c, c + CTAs, ...; run q holds vectors [q * chunk, (q + 1) * chunk)."""
     fill = -(-rows // KV_VIEW_CTAS)
-    chunk = min(max(16, 8192 // d), max(16, -(-fill // 16) * 16))
+    cap = max(16, 8192 // d // 16 * 16)
+    chunk = min(cap, max(16, -(-fill // 16) * 16))
     runs = -(-rows // chunk)
     return chunk, min(runs, KV_VIEW_CTAS)
 

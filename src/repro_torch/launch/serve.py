@@ -13,7 +13,11 @@ the reduced config; ``--device cpu`` runs the plain versions on the CPU.
 Weights are random, drawn from ``--seed``. ``--arch`` takes every name
 of ``repro_torch.configs`` (llama3-8b, qwen3-4b, qwen3-1.7b, qwen2.5-3b,
 nemotron-4-15b, mistral-large-123b, dbrx-132b, deepseek-v3-671b,
-falcon-mamba-7b, jamba-v0.1-52b). At full depth mistral-large-123b,
+falcon-mamba-7b, jamba-v0.1-52b, whisper-medium, phi-3-vision-4.2b).
+whisper-medium and phi-3-vision-4.2b get zero frame / patch embeddings, as
+in the reference, and run through the Engine only: ``--scheduler`` raises
+the reference's ``NotImplementedError`` (its admission takes token
+prompts only). At full depth mistral-large-123b,
 dbrx-132b, deepseek-v3-671b and jamba-v0.1-52b exceed one 80 GB card: serve
 them at ``--smoke`` or cut their depth through the Python API
 (``chip_smoke.py`` phases 16 and 17). The Mamba models refuse
@@ -203,6 +207,12 @@ def run(argv=None):
         # cache has something to hit on this synthetic trace
         half = args.prompt_len // 2
         prompt["tokens"][:, :half] = prompt["tokens"][0, :half]
+    if cfg.frontend:
+        # the frontends are stubs: zero embeddings, as the reference feeds
+        key = "patch_embeds" if cfg.frontend == "vision" else "frame_embeds"
+        prompt[key] = torch.zeros(
+            (args.requests, cfg.frontend_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device=args.device)
 
     cass = None
     if args.variant:

@@ -10,8 +10,14 @@ MLA (deepseek) caches the latent ``c`` and the rope key ``kr`` instead of
 per-head K/V, and runs *absorbed* everywhere up to 2048 tokens: scores
 and context live in the latent space, so prefill, incremental decode and
 the paged kernel share one association order. Beyond 2048 prompt tokens
-``_attend_flash_latent`` chunks the same math. Cross-attention joins with
-the encoder-decoder slice (ROADMAP Queue 1).
+``_attend_flash_latent`` chunks the same math.
+
+Cross-attention (whisper's decoder) is a dense, non-causal attention over
+the encoder's K/V: projected from the encoder output at prefill, read from
+the cache's plain bf16 ``cross`` stores in decode. The audio family has no
+rope (learned positions), but its decode still keys every self-attention
+key by its absolute position: ``rope_positions`` separates the positions
+rope reads (None there) from the ones the keys are placed at.
 """
 from __future__ import annotations
 
@@ -175,14 +181,23 @@ def place_at_positions(prefix_kv: tuple, new_kv: tuple,
                  for p, n in zip(prefix_kv, new_kv))
 
 
-def gqa_project_kv(rt: Runtime, p: dict, x: torch.Tensor, positions):
-    """K/V projections (+qk-norm on K, +rope). Returns (k, v) (B,S,Hkv,hd)."""
+def rope_positions(cfg, positions):
+    """The positions rope reads: none for the audio family (the reference's
+    ``_rope_positions``), else ``positions``."""
+    return None if cfg.family == "audio" else positions
+
+
+def gqa_project_kv(rt: Runtime, p: dict, x: torch.Tensor, positions,
+                   label: str = "attn"):
+    """K/V projections (+qk-norm on K, +rope at ``positions`` unless None).
+    Returns (k, v) (B,S,Hkv,hd). ``label`` is the projections' subtree
+    (``attn``, or ``xattn`` for cross-attention), the calibration key."""
     cfg = rt.cfg
     b, s, _ = x.shape
-    k = L.dense(rt, p["wk"], x, "attn.wk").reshape(b, s, cfg.n_kv_heads,
-                                                   cfg.hd)
-    v = L.dense(rt, p["wv"], x, "attn.wv").reshape(b, s, cfg.n_kv_heads,
-                                                   cfg.hd)
+    k = L.dense(rt, p["wk"], x, f"{label}.wk").reshape(b, s, cfg.n_kv_heads,
+                                                       cfg.hd)
+    v = L.dense(rt, p["wv"], x, f"{label}.wv").reshape(b, s, cfg.n_kv_heads,
+                                                       cfg.hd)
     if cfg.qk_norm:
         k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if positions is not None:
@@ -190,10 +205,12 @@ def gqa_project_kv(rt: Runtime, p: dict, x: torch.Tensor, positions):
     return k, v
 
 
-def gqa_project_q(rt: Runtime, p: dict, x: torch.Tensor, positions):
+def gqa_project_q(rt: Runtime, p: dict, x: torch.Tensor, positions,
+                  label: str = "attn"):
     cfg = rt.cfg
     b, s, _ = x.shape
-    q = L.dense(rt, p["wq"], x, "attn.wq").reshape(b, s, cfg.n_heads, cfg.hd)
+    q = L.dense(rt, p["wq"], x, f"{label}.wq").reshape(b, s, cfg.n_heads,
+                                                       cfg.hd)
     if cfg.qk_norm:
         q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
     if positions is not None:
@@ -203,14 +220,21 @@ def gqa_project_q(rt: Runtime, p: dict, x: torch.Tensor, positions):
 
 def gqa_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
                   causal: bool = True, prefix_kv=None, prefix_valid=None,
-                  cross_kv=None):
+                  cross_kv=None, label: str = "attn"):
     """Full GQA layer. Returns (out, new_kv).
 
-    * full sequence (prefill): ``prefix_kv`` None;
+    * full sequence (prefill, the encoder with ``causal=False``):
+      ``prefix_kv`` None;
     * cached decode: ``prefix_kv`` = materialised (k, v) (B,S,Hkv,hd)
       with every key at its absolute position (cache view, draft scratch
       placed after it) and ``prefix_valid`` (B|·,S) marking them; the new
-      tokens' K/V are placed at ``positions`` and returned to commit.
+      tokens' K/V are placed at ``positions`` and returned to commit;
+    * cross-attention: ``cross_kv`` = the encoder's (k, v) (B,S_enc,Hkv,
+      hd), attended densely and without a mask; ``new_kv`` is None.
+
+    ``positions`` are absolute token positions; rope reads them through
+    ``rope_positions`` (the audio family has none). ``label`` names the
+    projections' subtree for calibration (``attn`` or ``xattn``).
 
     The reference appends the new keys after the prefix instead. Keying by
     absolute position gives a query the same key array, in the same order,
@@ -218,21 +242,22 @@ def gqa_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
     tokens (a width-(γ+1) verify pass, and autoregressive steps run at
     that width) agree bit for bit on every row they share.
     """
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention belongs to the "
-                                  "encoder-decoder slice: ROADMAP Queue 1")
     cfg = rt.cfg
     b, sq, _ = x.shape
     scale = 1.0 / (cfg.hd ** 0.5)
-    q = gqa_project_q(rt, p, x, positions)
-    if prefix_kv is not None:
-        new_k, new_v = gqa_project_kv(rt, p, x, positions)
+    rope = rope_positions(cfg, positions)
+    q = gqa_project_q(rt, p, x, rope, label)
+    if cross_kv is not None:
+        out = _attend_dense(q, cross_kv[0], cross_kv[1], None, scale)
+        new_kv = None
+    elif prefix_kv is not None:
+        new_k, new_v = gqa_project_kv(rt, p, x, rope, label)
         k, v = place_at_positions(prefix_kv, (new_k, new_v), positions)
         out = _attend_dense(q, k, v, position_mask(prefix_valid, positions,
                                                    sq), scale)
         new_kv = (new_k, new_v)
     else:
-        k, v = gqa_project_kv(rt, p, x, positions)
+        k, v = gqa_project_kv(rt, p, x, rope, label)
         if sq > 2048:
             out = _attend_flash(q, k, v, causal=causal, q_offset=0,
                                 chunk_q=rt.attn_chunk_q,
@@ -242,7 +267,7 @@ def gqa_attention(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
             out = _attend_dense(q, k, v, mask, scale)
         new_kv = (k, v)
     out = out.reshape(b, sq, cfg.n_heads * out.shape[-1])
-    return L.dense(rt, p["wo"], out, "attn.wo"), new_kv
+    return L.dense(rt, p["wo"], out, f"{label}.wo"), new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -439,8 +464,9 @@ def gqa_attention_paged(rt: Runtime, p: dict, x: torch.Tensor, positions, *,
     hkv = cfg.n_kv_heads
     g = cfg.n_heads // hkv
     scale = 1.0 / (cfg.hd ** 0.5)
-    q = gqa_project_q(rt, p, x, positions)
-    new_k, new_v = gqa_project_kv(rt, p, x, positions)
+    rope = rope_positions(cfg, positions)
+    q = gqa_project_q(rt, p, x, rope)
+    new_k, new_v = gqa_project_kv(rt, p, x, rope)
     qg = q.reshape(b, sq, hkv, g, cfg.hd)
     length = length.to(torch.int32).reshape(-1).expand(b).contiguous()
     windowed = suffix_from is not None and kv_pools[0] == "plain"

@@ -106,10 +106,22 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * p["scale"].to(torch.float32)).to(x.dtype)
 
 
+def layernorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 layer norm with the population variance (``jnp.var``), as the
+    reference's: never torch's default unbiased ``var``."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
 def norm(rt: Runtime, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A norm with a ``bias`` (the audio family's) is a layer norm, any
+    other an RMS norm."""
     if "bias" in p:
-        raise NotImplementedError("layernorm belongs to the encoder-decoder "
-                                  "slice: ROADMAP Queue 1 item 5")
+        return layernorm(p, x, rt.cfg.norm_eps)
     return rmsnorm(p, x, rt.cfg.norm_eps)
 
 
@@ -153,6 +165,19 @@ def unembed(rt: Runtime, params: dict, x: torch.Tensor) -> torch.Tensor:
             rt.collector.observe("lm_head", x)
         return torch.matmul(x, w.to(x.dtype)).to(torch.float32)
     return dense(rt, params["lm_head"], x, "lm_head").to(torch.float32)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's sinusoidal table (n, d) f32: sines, then cosines, of
+    position x exp(-log(10000) i / (d/2 - 1))."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    log_t = torch.log(torch.tensor(10000.0, dtype=torch.float32,
+                                   device=device))
+    inv = torch.exp(-log_t * torch.arange(d // 2, dtype=torch.float32,
+                                          device=device)
+                    / max(d // 2 - 1, 1))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Model assembly for decoders with GQA or MLA attention, Mamba-1 mixers
-and dense or MoE FFNs (port of ``models/model.py``).
+"""Model assembly (port of ``models/model.py``): decoders with GQA or MLA
+attention, Mamba-1 mixers and dense or MoE FFNs, the encoder-decoder audio
+family and a vision frontend's backbone.
 
-``forward_prefill`` — full-prompt pass that writes the (packed) KV cache
-                      and the SSM state, and returns last-position logits.
+``forward_prefill`` — full-prompt pass that writes the (packed) KV cache,
+                      the SSM state and the cross-attention K/V, and
+                      returns last-position logits.
 ``forward_decode``  — q new tokens (1 for autoregressive/draft, γ+1 for
                       verification) against the cache; returns per-layer
                       K/V updates and SSM states for the engine to commit.
@@ -18,10 +20,18 @@ is a dense MLP (``'m'``: SwiGLU, squared-ReLU or GELU), top-k MoE (``'M'``,
 ``ffn.moe``; deepseek's first ``first_dense_layers`` are dense) or none
 (``'-'``, falcon-mamba). The MoE aux (drops, balance loss) is summed over
 the blocks; ``forward_train`` returns it and serving ignores it, as in the
-reference. Encoder-decoder and frontend models are ROADMAP Queue 1 item
-5, training (the loss and its backward) too. Multi-token prediction heads
-(``mtp_depth``) feed only the reference's training loss, so serving
-neither builds nor reads them.
+reference.
+
+The audio family (whisper) has layer norms (a norm with a ``bias``),
+biased projections, learned decoder positions (``pos_embed``) and no
+rope; its encoder (``enc``, ``enc_norm``) runs the frame embeddings plus
+sinusoidal positions through non-causal blocks, and each decoder
+attention block adds cross-attention (``xattn``, ``norm_x``) over the
+encoder output, whose K/V the prefill caches as plain bf16. A vision
+frontend's patch embeddings are prepended to the text tokens. Training
+(the loss and its backward) is ROADMAP Queue 1 item 5. Multi-token
+prediction heads (``mtp_depth``) feed only the reference's training loss,
+so serving neither builds nor reads them.
 """
 from __future__ import annotations
 
@@ -36,8 +46,6 @@ from repro_torch.models.layers import Runtime
 from repro_torch.serving import kvcache as KC
 
 Params = dict
-_FAMILY = ("the port covers decoders with GQA or MLA attention or Mamba-1 "
-           "mixers and dense or MoE FFNs; {what} is ROADMAP Queue 1 item 5")
 # The reference fails on this combination too (paged_gqa_packed reads the
 # Cassandra-1 exponent leaves: KeyError 'exp_words'); neither package has a
 # Cassandra-2 packed attention kernel.
@@ -51,17 +59,6 @@ C2_PACKED_ATTN = (
 # ---------------------------------------------------------------------------
 # Initialisation
 # ---------------------------------------------------------------------------
-
-def _check_dense(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run: encoder-decoder models,
-    modality frontends and the audio family. ``mtp_depth`` is ignored
-    (training only)."""
-    for what, off in (("enc-dec", cfg.is_encdec),
-                      ("a modality frontend", cfg.frontend),
-                      ("the audio family", cfg.family == "audio")):
-        if off:
-            raise NotImplementedError(_FAMILY.format(what=what))
-
 
 def cfg_has_moe(cfg: ModelConfig) -> bool:
     return any(e[1] == "M" for e in cfg.block_pattern)
@@ -138,10 +135,11 @@ def _init_ssm(gen, r: int, cfg: ModelConfig, dtype, device) -> dict:
 
 def _init_mlp(gen, r: int, cfg: ModelConfig, d_ff: int, dtype,
               device) -> dict:
-    """The reference's ``_init_mlp``: up and down projections, and a gate
-    for SwiGLU."""
-    p = {"w_up": _dense_init(gen, r, cfg.d_model, d_ff, dtype, device),
-         "w_down": _dense_init(gen, r, d_ff, cfg.d_model, dtype, device,
+    """The reference's ``_init_mlp``: up and down projections (biased in
+    the audio family), and a gate for SwiGLU."""
+    bias = cfg.family == "audio"
+    p = {"w_up": _dense_init(gen, r, cfg.d_model, d_ff, dtype, device, bias),
+         "w_down": _dense_init(gen, r, d_ff, cfg.d_model, dtype, device, bias,
                                std=d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5)}
     if cfg.ffn_act == "swiglu":
         p["w_gate"] = _dense_init(gen, r, cfg.d_model, d_ff, dtype, device)
@@ -180,71 +178,104 @@ def _init_moe(gen, r: int, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cuda") -> Params:
-    """Random weights with the reference's distributions (``model.py``
-    ``_dense_init``/``init_params``): N(0, 1/n_in) projections, output
-    projections scaled by 1/sqrt(2·n_layers), N(0, 0.02²) embedding and
-    lm_head, unit norms; MoE blocks an N(0, 0.02²) f32 router and experts
-    as ``_init_moe``. Draws come from ``generator`` (on ``device``), one
-    layer (an expert) at a time, so no full-depth f32 tensor ever exists.
-    The tree is the reference's without its ``mtp`` head (training
-    only)."""
-    _check_dense(cfg)
+def _norm_init(cfg: ModelConfig, lead: tuple, device) -> dict:
+    """A block's (or the model's) norm: unit f32 scales, and for the audio
+    family zero f32 biases, which make it a layer norm (the reference's
+    ``_norm_init``)."""
+    p = {"scale": torch.ones((*lead, cfg.d_model), dtype=torch.float32,
+                             device=device)}
+    if cfg.family == "audio":
+        p["bias"] = torch.zeros((*lead, cfg.d_model), dtype=torch.float32,
+                                device=device)
+    return p
+
+
+def _init_gqa(gen, r: int, cfg: ModelConfig, dtype, device, ones) -> dict:
+    """The reference's ``_init_gqa``: wq, wk, wv (biased with ``qkv_bias``
+    or in the audio family), wo (biased in the audio family) and the
+    ``qk_norm`` scales."""
+    hd, audio = cfg.hd, cfg.family == "audio"
+    bias = cfg.qkv_bias or audio
+    p = {"wq": _dense_init(gen, r, cfg.d_model, cfg.n_heads * hd, dtype,
+                           device, bias),
+         "wk": _dense_init(gen, r, cfg.d_model, cfg.n_kv_heads * hd, dtype,
+                           device, bias),
+         "wv": _dense_init(gen, r, cfg.d_model, cfg.n_kv_heads * hd, dtype,
+                           device, bias),
+         "wo": _dense_init(gen, r, cfg.n_heads * hd, cfg.d_model, dtype,
+                           device, audio,
+                           std=(cfg.n_heads * hd) ** -0.5
+                           / (2 * cfg.n_layers) ** 0.5)}
+    if cfg.qk_norm:
+        p["q_norm"] = ones(r, hd)
+        p["k_norm"] = ones(r, hd)
+    return p
+
+
+def _init_groups(gen, cfg: ModelConfig, cross: bool, dtype,
+                 device) -> list:
+    """The layer groups' stacked trees (the reference's ``_init_groups``):
+    per entry its norms, mixer, FFN and, with ``cross``, an attention
+    entry's cross-attention (``xattn``, a GQA tree, and ``norm_x``)."""
     ones = lambda r, d: {"scale": torch.ones((r, d), dtype=torch.float32,
                                              device=device)}
-    dec = []
+    groups = []
     for g in layer_groups(cfg):
         r = g.repeats
         gdict = {}
         for j, kind in enumerate(g.entries):
             if kind[0] == "s":
-                mixer = {"ssm": _init_ssm(generator, r, cfg, dtype, device)}
+                mixer = {"ssm": _init_ssm(gen, r, cfg, dtype, device)}
             elif cfg.mla:
-                mixer = {"attn": _init_mla(generator, r, cfg, dtype, device,
-                                           ones)}
+                mixer = {"attn": _init_mla(gen, r, cfg, dtype, device, ones)}
             else:
-                hd = cfg.hd
-                attn = {
-                    "wq": _dense_init(generator, r, cfg.d_model,
-                                      cfg.n_heads * hd, dtype, device,
-                                      cfg.qkv_bias),
-                    "wk": _dense_init(generator, r, cfg.d_model,
-                                      cfg.n_kv_heads * hd, dtype, device,
-                                      cfg.qkv_bias),
-                    "wv": _dense_init(generator, r, cfg.d_model,
-                                      cfg.n_kv_heads * hd, dtype, device,
-                                      cfg.qkv_bias),
-                    "wo": _dense_init(generator, r, cfg.n_heads * hd,
-                                      cfg.d_model, dtype, device,
-                                      std=(cfg.n_heads * hd) ** -0.5
-                                      / (2 * cfg.n_layers) ** 0.5),
-                }
-                if cfg.qk_norm:
-                    attn["q_norm"] = ones(r, hd)
-                    attn["k_norm"] = ones(r, hd)
-                mixer = {"attn": attn}
-            entry = {"norm1": ones(r, cfg.d_model), **mixer}
+                mixer = {"attn": _init_gqa(gen, r, cfg, dtype, device, ones)}
+            entry = {"norm1": _norm_init(cfg, (r,), device), **mixer}
+            if cross and kind[0] == "a":
+                entry["xattn"] = _init_gqa(gen, r, cfg, dtype, device, ones)
+                entry["norm_x"] = _norm_init(cfg, (r,), device)
             if kind[1] == "m":
-                entry["ffn"] = _init_mlp(generator, r, cfg, cfg.d_ff, dtype,
-                                         device)
+                entry["ffn"] = _init_mlp(gen, r, cfg, cfg.d_ff, dtype, device)
             elif kind[1] == "M":
-                entry["moe"] = _init_moe(generator, r, cfg, dtype, device)
+                entry["moe"] = _init_moe(gen, r, cfg, dtype, device)
             if kind[1] in "mM":
-                entry["norm2"] = ones(r, cfg.d_model)
+                entry["norm2"] = _norm_init(cfg, (r,), device)
             gdict[f"e{j}"] = entry
-        dec.append(gdict)
+        groups.append(gdict)
+    return groups
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.bfloat16, device="cuda") -> Params:
+    """Random weights with the reference's distributions (``model.py``
+    ``_dense_init``/``init_params``): N(0, 1/n_in) projections, output
+    projections scaled by 1/sqrt(2·n_layers), N(0, 0.02²) embedding and
+    lm_head, unit norms (zero biases: the audio family's biased
+    projections and layer norms); MoE blocks an N(0, 0.02²) f32 router and
+    experts as ``_init_moe``; an encoder-decoder model its encoder groups
+    (no cross-attention) and ``enc_norm``; the audio family an N(0, 0.02²)
+    ``pos_embed`` table of ``max_wavelength_pos + 128`` rows. Draws come
+    from ``generator`` (on ``device``), one layer (an expert) at a time,
+    so no full-depth f32 tensor ever exists. The tree is the reference's
+    without its ``mtp`` head (training only)."""
     params: Params = {
+        "dec": _init_groups(generator, cfg, cfg.cross_attention, dtype,
+                            device),
         "embed": {"table": _normal(generator, (cfg.vocab_size, cfg.d_model),
                                    0.02, dtype, device)},
-        "final_norm": {"scale": torch.ones(cfg.d_model, dtype=torch.float32,
-                                           device=device)},
-        "dec": dec,
+        "final_norm": _norm_init(cfg, (), device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": _normal(generator,
                                           (cfg.d_model, cfg.vocab_size),
                                           0.02, dtype, device)}
+    if cfg.is_encdec:
+        params["enc"] = _init_groups(generator, cfg, False, dtype, device)
+        params["enc_norm"] = _norm_init(cfg, (), device)
+    if cfg.family == "audio":
+        params["pos_embed"] = {"table": _normal(
+            generator, (cfg.max_wavelength_pos + 128, cfg.d_model), 0.02,
+            dtype, device)}
     return params
 
 
@@ -384,8 +415,11 @@ def _ssm_entry(rt: Runtime, bp: dict, x, *, mode, centry, scratch):
 def _block(rt: Runtime, bp: dict, entry: str, x, positions, *, mode,
            causal=True, centry=None, scratch=None, length=None,
            scratch_len=None, book=None, s_max=0, ventry=None, table=None,
-           suffix_from=None):
-    """One block: an attention or Mamba mixer, then the FFN. Returns (x,
+           suffix_from=None, cross_entry=None, enc_out=None):
+    """One block: an attention or Mamba mixer, cross-attention (a decoder
+    block of an encoder-decoder model: over ``enc_out``, projected here,
+    in train and prefill, whose K/V a prefill returns as ``ck`` / ``cv``;
+    over the cached ``cross_entry`` in decode), then the FFN. Returns (x,
     cache_update, moe_aux): the aux of an ``'M'`` block (``ffn.moe``),
     None for any other."""
     h = L.norm(rt, bp["norm1"], x)
@@ -400,6 +434,18 @@ def _block(rt: Runtime, bp: dict, entry: str, x, positions, *, mode,
                                   table=table, suffix_from=suffix_from)
         upd = dict(kv_upd) if mode in ("decode", "prefill") else {}
     x = x + out
+    if cross_entry is not None or (enc_out is not None and entry[0] == "a"):
+        hx = L.norm(rt, bp["norm_x"], x)
+        if enc_out is not None:
+            ck, cv = A.gqa_project_kv(rt, bp["xattn"], enc_out, None,
+                                      "xattn")
+            if mode == "prefill":
+                upd["ck"], upd["cv"] = ck, cv
+        else:
+            ck, cv = cross_entry["ck"], cross_entry["cv"]
+        xo, _ = A.gqa_attention(rt, bp["xattn"], hx, None, cross_kv=(ck, cv),
+                                label="xattn")
+        x = x + xo
     aux = None
     if entry[1] == "m":
         h = L.norm(rt, bp["norm2"], x)
@@ -444,8 +490,11 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                  positions, *, mode, causal=True, cache_groups=None,
                  scratch_groups=None, length=None, scratch_len=None,
                  book=None, s_max=0, view_groups=None, table=None,
-                 suffix_from=None):
+                 suffix_from=None, cross_groups=None, enc_out=None,
+                 scope: str = "dec"):
     """Run all layer groups; a loop over the repeats R of each group.
+    ``scope`` is the groups' subtree (``dec``, or ``enc`` for the
+    encoder), under which the calibrator observes.
 
     Returns (x, aux, updates_groups): updates stacked along R like the
     reference's scan outputs, aux the MoE blocks' summed aux ({} without
@@ -461,7 +510,7 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
             for j, entry in enumerate(entries):
                 ekey = f"e{j}"
                 if rt.collector is not None:
-                    rt.collector.layer(f"dec[{gi}].{ekey}", r)
+                    rt.collector.layer(f"{scope}[{gi}].{ekey}", r)
                 pick = lambda grp: (_index(grp[gi][ekey], r)
                                     if grp is not None and ekey in grp[gi]
                                     else None)
@@ -471,7 +520,8 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                     scratch=pick(scratch_groups), length=length,
                     scratch_len=scratch_len, book=book, s_max=s_max,
                     ventry=pick(view_groups), table=table,
-                    suffix_from=suffix_from)
+                    suffix_from=suffix_from, cross_entry=pick(cross_groups),
+                    enc_out=enc_out)
                 if upd:
                     g_upd[ekey] = upd
                 if baux is not None:
@@ -488,22 +538,65 @@ def _entries(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# Embedding and the encoder
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(rt: Runtime, params, tokens, patch_embeds=None,
+                  positions=None):
+    """Token embeddings, after a vision frontend's ``patch_embeds``; the
+    audio family adds its learned positions (``pos_embed``) at
+    ``positions`` (default 0 .. S-1)."""
+    cfg = rt.cfg
+    x = L.embed(params["embed"], tokens)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    if cfg.family == "audio":
+        pos = (positions if positions is not None
+               else torch.arange(x.shape[1], device=x.device))
+        x = x + params["pos_embed"]["table"][pos.to(torch.int64)].to(x.dtype)
+    return x
+
+
+def _run_encoder(rt: Runtime, params, frame_embeds):
+    """The encoder over the frontend's frame embeddings (bf16, plus the
+    sinusoidal positions): its groups run without a cache and, unless
+    ``causal_encoder``, without a causal mask, then ``enc_norm``."""
+    cfg = rt.cfg
+    x = frame_embeds.to(torch.bfloat16)
+    x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                   x.device).to(x.dtype)[None]
+    x, _, _ = _scan_groups(rt, params["enc"], _entries(cfg), x, None,
+                           mode="train", causal=cfg.causal_encoder,
+                           scope="enc")
+    return L.norm(rt, params["enc_norm"], x)
+
+
+def _encode(rt: Runtime, params, batch: dict):
+    """The encoder output of an encoder-decoder model, else None."""
+    if not rt.cfg.is_encdec:
+        return None
+    return _run_encoder(rt, params, batch["frame_embeds"])
+
+
+# ---------------------------------------------------------------------------
 # Public forwards
 # ---------------------------------------------------------------------------
 
 def forward_train(rt: Runtime, params: Params, batch: dict):
     """Full-sequence pass with no cache (the reference's ``forward_train``
     forward; the loss and its backward belong to the training slice).
-    Returns (logits (B,S,V) f32, aux): aux holds the MoE blocks' summed
+    ``batch`` holds ``tokens``, and ``frame_embeds`` (an encoder-decoder
+    model) or ``patch_embeds`` (a vision frontend, prepended). Returns
+    (logits (B,S,V) f32, aux): aux holds the MoE blocks' summed
     ``balance_loss`` (f32) and ``dropped`` (int32), zeros without one, as
     the reference's. With ``rt.collector`` set it is the Wanda calibration
     forward."""
     cfg = rt.cfg
-    _check_dense(cfg)
-    x = L.embed(params["embed"], batch["tokens"])
+    enc_out = _encode(rt, params, batch)
+    x = _embed_inputs(rt, params, batch["tokens"], batch.get("patch_embeds"))
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux, _ = _scan_groups(rt, params["dec"], _entries(cfg), x, positions,
-                             mode="train")
+                             mode="train", enc_out=enc_out)
     if not aux:
         aux = {"balance_loss": torch.zeros((), dtype=torch.float32,
                                            device=x.device),
@@ -514,16 +607,17 @@ def forward_train(rt: Runtime, params: Params, batch: dict):
 
 
 def forward_prefill(rt: Runtime, params: Params, batch: dict, cache: dict):
-    """Process the prompt, write the cache. Returns (last_logits, cache)."""
+    """Process the prompt (``batch`` as ``forward_train``'s), write the
+    cache: the packed K/V at offset 0 and, for an encoder-decoder model,
+    the cross-attention K/V. Returns (last_logits, cache)."""
     cfg = rt.cfg
-    _check_dense(cfg)
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens)
+    enc_out = _encode(rt, params, batch)
+    x = _embed_inputs(rt, params, batch["tokens"], batch.get("patch_embeds"))
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     book = KC.cache_codebook(cache)
     x, _, upd = _scan_groups(rt, params["dec"], _entries(cfg), x, positions,
-                             mode="prefill")
+                             mode="prefill", enc_out=enc_out)
     cache = _commit_prefill(rt, cache, upd, s, book)
     x = L.norm(rt, params["final_norm"], x[:, -1:])
     return L.unembed(rt, params, x), cache
@@ -532,7 +626,9 @@ def forward_prefill(rt: Runtime, params: Params, batch: dict, cache: dict):
 def _commit_prefill(rt: Runtime, cache, updates_groups, s, book):
     """Encode the prompt's K/V (packed caches) and write them at offset 0;
     an SSM entry takes the prompt's final ``conv`` and ``h`` (new tensors,
-    as ``engine.commit`` gives them)."""
+    as ``engine.commit`` gives them); cross-attention K/V are copied into
+    the cache's plain bf16 ``cross`` stores, as the reference writes them,
+    never packed."""
     cfg, cass = rt.cfg, rt.cass
     for gi, g_upd in enumerate(updates_groups):
         for ekey, upd in g_upd.items():
@@ -548,6 +644,10 @@ def _commit_prefill(rt: Runtime, cache, updates_groups, s, book):
                 for r in range(new.shape[0]):
                     KC.append_store(_index(centry[name], r),
                                     _index(enc, r), 0)
+            if "ck" in upd:
+                xentry = cache["cross"][gi][ekey]
+                xentry["ck"].copy_(upd["ck"])
+                xentry["cv"].copy_(upd["cv"])
     cache["length"] = torch.full_like(cache["length"], s)
     return cache
 
@@ -593,10 +693,11 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
     independent: per-row ``length`` offsets positions and masks. A paged
     cache's ``block_table`` addresses its pools; a target pass through the
     paged kernels may give each row's window start ``suffix_from`` (B,)
-    (``engine.window_start``).
+    (``engine.window_start``). An encoder-decoder model reads the
+    cross-attention K/V the prefill cached; the audio family adds the
+    learned positions of the new tokens.
     """
     cfg = rt.cfg
-    _check_dense(cfg)
     length = cache["length"]
     slen = scratch_len if scratch_len is not None else 0
     q = tokens.shape[1]
@@ -605,14 +706,14 @@ def forward_decode(rt: Runtime, params: Params, tokens: torch.Tensor,
         positions = length[:, None] + slen + ar[None, :]
     else:
         positions = length + slen + ar
-    x = L.embed(params["embed"], tokens)
+    x = _embed_inputs(rt, params, tokens, positions=positions)
     book = KC.cache_codebook(cache)
     x, _, upd = _scan_groups(
         rt, params["dec"], _entries(cfg), x, positions, mode="decode",
         cache_groups=cache["dec"], scratch_groups=scratch, length=length,
         scratch_len=slen, book=book, s_max=_cache_s_max(cfg, cache),
         view_groups=cache_view, table=cache.get("block_table"),
-        suffix_from=suffix_from)
+        suffix_from=suffix_from, cross_groups=cache.get("cross"))
     x = L.norm(rt, params["final_norm"], x)
     return L.unembed(rt, params, x), upd
 

@@ -538,7 +538,10 @@ class Engine:
         """Returns (tokens (B, max_new+γ+1) int32, -1 beyond each row's
         output, every row holding ≥ max_new tokens), stats.
 
-        ``generator`` feeds a non-greedy run's draws (default: one seeded
+        ``batch`` holds ``tokens`` (B, S) and a frontend's embeddings:
+        ``frame_embeds`` (an encoder-decoder model's encoder input) or
+        ``patch_embeds`` (prepended to the text; the cache holds them too,
+        as in the reference). ``generator`` feeds a non-greedy run's draws (default: one seeded
         with 0 on the engine's device, the reference's ``PRNGKey(0)``). As
         in the reference, the prefill token is the argmax, and
         ``speculative=False`` runs greedy whatever ``ecfg.greedy`` says.
@@ -555,14 +558,22 @@ class Engine:
         """
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        tokens = batch["tokens"].to(self.device)
-        b, s = tokens.shape
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        b, s = batch["tokens"].shape
         pad = self.ecfg.gamma + 1
-        cache = KC.init_cache(self.cfg, self.cass, b, s + max_new + pad,
+        # a vision frontend's patches sit before the text in the cache
+        s_total = s + (self.cfg.frontend_tokens
+                       if self.cfg.frontend == "vision" else 0)
+        s_max = s_total + max_new + pad
+        if self.cfg.family == "audio" and \
+                s_max > self.params["pos_embed"]["table"].shape[0]:
+            raise ValueError(
+                f"{s_max} decoder positions exceed the learned position "
+                f"table ({self.params['pos_embed']['table'].shape[0]} rows)")
+        cache = KC.init_cache(self.cfg, self.cass, b, s_max,
                               packed=self.cass is not None,
                               device=self.device)
-        logits, cache = M.forward_prefill(self.rt, self.params,
-                                          {"tokens": tokens}, cache)
+        logits, cache = M.forward_prefill(self.rt, self.params, batch, cache)
         cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         buf = torch.full((b, max_new + pad), -1, dtype=torch.int32,
                          device=self.device)

@@ -429,10 +429,6 @@ def _dec_specs(cfg: ModelConfig, cass, b: int, s_max: int, packed: bool,
     """Per layer group, each entry's table: attention stores with leading
     (R, b, s_max) (a pool's (R, NB, BS)), SSM state for ``ssm_rows``
     rows."""
-    if cfg.cross_attention:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's cache holds GQA, MLA and SSM entries "
-            "only; cross-attention caches are ROADMAP Queue 1 item 5")
     dec = []
     for g in layer_groups(cfg):
         gdict = {}
@@ -447,11 +443,27 @@ def _dec_specs(cfg: ModelConfig, cass, b: int, s_max: int, packed: bool,
     return dec
 
 
+def _cross_specs(cfg: ModelConfig, b: int) -> list:
+    """Per layer group, each attention entry's cross-attention K/V: plain
+    bf16 (R, b, frontend_tokens, Hkv, hd) ``ck`` / ``cv``, written once by
+    the prefill and never packed (the reference's ``cache_specs``)."""
+    out = []
+    for g in layer_groups(cfg):
+        shape = (g.repeats, b, cfg.frontend_tokens, cfg.n_kv_heads, cfg.hd)
+        out.append({f"e{j}": {"ck": (shape, torch.bfloat16),
+                              "cv": (shape, torch.bfloat16)}
+                    for j, entry in enumerate(g.entries) if entry[0] == "a"})
+    return out
+
+
 def cache_specs(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
                 s_max: int, packed: bool) -> dict:
-    """Plain shape table of the full cache: leaves are (shape, dtype)."""
+    """Plain shape table of the full cache: leaves are (shape, dtype). A
+    model with cross-attention has its ``cross`` stores beside ``dec``."""
     cache: dict = {"dec": _dec_specs(cfg, cass, b, s_max, packed, b),
                    "length": ((b,), torch.int32)}
+    if cfg.cross_attention:
+        cache["cross"] = _cross_specs(cfg, b)
     if packed:
         cache["book_exp_of_rank"] = ((256,), torch.uint8)
         cache["book_rank_of_exp"] = ((256,), torch.uint8)
@@ -494,7 +506,11 @@ def paged_cache_specs(cfg: ModelConfig, cass: CassandraConfig | None, b: int,
     """Plain shape table of a paged cache: stores become block pools
     (R,NB,BS,…) shared by all rows; SSM state stays per row (it has no
     token axis to page); ``block_table`` (B,MB) maps each row's logical
-    blocks to pool blocks; ``length`` stays (B,)."""
+    blocks to pool blocks; ``length`` stays (B,). Cross-attention stores
+    are refused, as the reference refuses them."""
+    if cfg.cross_attention:
+        raise NotImplementedError(
+            "paged caches do not support cross-attention stores yet")
     cache: dict = {"dec": _dec_specs(cfg, cass, num_blocks, block_size,
                                      packed, b),
                    "length": ((b,), torch.int32),

@@ -319,6 +319,11 @@ class Scheduler:
                  telemetry: Telemetry | None = None, device="cuda",
                  generator: torch.Generator | None = None,
                  rt_extra: dict | None = None):
+        if cfg.frontend:
+            # the reference's admission takes token prompts only: no
+            # request carries frame or patch embeddings
+            raise NotImplementedError(
+                "scheduler admission is token-prompt only for now")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Scheduler(device='cuda') but CUDA is not "

@@ -635,7 +635,8 @@ def _topk_rows(gen, rows, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,keep", [(128, 80), (64, 32), (32, 16),
-                                    (256, 160), (128, 128), (512, 304)])
+                                    (256, 160), (128, 128), (512, 304),
+                                    (96, 64), (96, 96)])
 def test_kv_topk_matches_plain_on_card(card, d, keep):
     """bitmap, kept and pruned bit for bit (NaN payloads included) on
     random rows and forced ties, +-0, all-equal, NaN and inf rows."""
@@ -694,8 +695,8 @@ def test_codec_wrappers_reject_what_the_kernels_do_not_take(card):
         MXD.mx_decode(sign, m16, se, 16)
     with pytest.raises(ValueError, match="is on cpu"):
         MXD.mx_decode(sign.cpu(), m16, se, 32)
-    v = torch.zeros((4, 96), dtype=torch.bfloat16, device=card)
-    with pytest.raises(ValueError, match="d=96"):
+    v = torch.zeros((4, 160), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="d=160"):
         KT.kv_topk(v, 48)
     with pytest.raises(ValueError, match="not contiguous"):
         KT.kv_topk(torch.zeros((4, 256), dtype=torch.bfloat16,
@@ -748,7 +749,7 @@ def test_c2_engine_and_scheduler_on_card(card):
 # kv_encode / kv_view: a C-1 KV store's encode and views in one launch each
 # ---------------------------------------------------------------------------
 
-KV_WIDTHS = [32, 64, 128, 256, 512]
+KV_WIDTHS = [32, 64, 96, 128, 256, 512]     # 96: phi-3-vision's head_dim
 
 
 def _kv_rows(gen, rows, d):
@@ -910,7 +911,7 @@ def _offset_copy(t, shift):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 128, 512])
+@pytest.mark.parametrize("d", [32, 96, 128, 512])
 def test_kv_view_on_misaligned_and_strided_leaves_on_card(card, d):
     """Leaves at 4-byte and odd offsets (the kernel copies in the pieces
     each allows, never past a leaf), non-contiguous leaves (copied), and
@@ -960,9 +961,9 @@ def test_kv_codec_kernels_reject_what_they_do_not_take(card):
     from repro_torch.serving import kvcache as KC
     book = KC.default_kv_codebook(card)
     kw = dict(keep=48, trunc=4, exp_bits=3)
-    with pytest.raises(ValueError, match="d=96"):
-        KT.kv_encode(torch.zeros((4, 96), dtype=torch.bfloat16, device=card),
-                     book[1], **kw)
+    with pytest.raises(ValueError, match="d=160"):
+        KT.kv_encode(torch.zeros((4, 160), dtype=torch.bfloat16,
+                                 device=card), book[1], **kw)
     x = torch.zeros((4, 128), dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError, match="unsupported device cpu"):
         KT.kv_encode(x.cpu(), book[1], **kw)
@@ -980,8 +981,8 @@ def test_kv_codec_kernels_reject_what_they_do_not_take(card):
     cass = CassandraConfig(variant=1)
     store = KC.encode_store(cass, x, 128, book)
     vkw = dict(d=128, keep=80, trunc=4, exp_bits=3)
-    with pytest.raises(ValueError, match="d=96"):
-        UD.kv_view(store["spec"], None, book[0], **{**vkw, "d": 96})
+    with pytest.raises(ValueError, match="d=160"):
+        UD.kv_view(store["spec"], None, book[0], **{**vkw, "d": 160})
     with pytest.raises(ValueError, match="keep=40"):
         UD.kv_view(store["spec"], None, book[0], **{**vkw, "keep": 40})
     with pytest.raises(ValueError, match="shape"):
@@ -1617,10 +1618,18 @@ FAMILY_SHAPES = [(2560, 4096), (2560, 1024), (2560, 9728), (9728, 2560),
 # vocabularies of falcon-mamba-7b and Jamba
 SSM_SHAPES = [(8192, 288), (256, 16), (256, 8192), (4096, 16384),
               (8192, 4096), (4096, 65024), (4096, 65536)]
+# whisper-medium's products (every attention and cross-attention
+# projection 1024 -> 1024, up 1024 -> 4096, and lm_head 1024 -> 51865: an
+# odd N, so y's rows are not 16-byte aligned), phi-3-vision-4.2b's, and
+# small odd widths (a half-filled last column tile)
+ENCDEC_SHAPES = [(1024, 1024), (1024, 4096), (1024, 51865), (3072, 3072),
+                 (3072, 8192), (8192, 3072), (3072, 32064), (512, 77),
+                 (256, 9)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES + SSM_SHAPES)
+@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES + SSM_SHAPES
+                         + ENCDEC_SHAPES)
 def test_draft_matmul_at_the_families_shapes_on_card(card, n_in, n_out):
     """The main path's plan at M = 4 (a decode batch) and 16 (a verify
     pass), at the families' and the Mamba mixers' shapes: y within rtol
@@ -1642,7 +1651,8 @@ def test_draft_matmul_at_the_families_shapes_on_card(card, n_in, n_out):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES + SSM_SHAPES)
+@pytest.mark.parametrize("n_in,n_out", FAMILY_SHAPES + SSM_SHAPES
+                         + ENCDEC_SHAPES)
 def test_target_decode_at_the_families_shapes_on_card(card, n_in, n_out):
     """Bit for bit the plain chain, mode-1 superblocks included, and the
     weight itself wherever the format is exact: a mode-1 region holds an
@@ -1904,3 +1914,66 @@ def test_ssm_engine_and_scheduler_on_card(card, arch):
     assert serve(prompts, overlap=False) == fused
     recycled = serve(prompts, num_slots=1)
     assert recycled == [serve([p], num_slots=1)[0] for p in prompts]
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder audio family and the vision frontend's backbone
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", [("whisper-medium", None),
+                                           ("phi-3-vision-4.2b", None),
+                                           ("phi-3-vision-4.2b", 96)])
+def test_encdec_engine_on_card(card, arch, head_dim):
+    """whisper-medium (encoder, cross-attention, layer norms, learned
+    positions) and phi-3-vision-4.2b (prepended patches; also widened to
+    head_dim 96, its full-width head, so the KV stores encode and view at
+    d = 96) at SMOKE width, C-1, with random frontend embeddings: the
+    Engine's speculative tokens equal autoregressive steps at the verify
+    width on every position (the verify pass's logits bit for bit);
+    ``draft_matmul`` launched once per decoder matrix per draft pass
+    (whisper's encoder and cross-attention K/V never draft); the cross
+    K/V unchanged by the cycles; the Scheduler refused."""
+    import dataclasses
+    from repro_torch.kernels import kv_topk as KT, unary_decode as UD
+    from repro_torch.serving.scheduler import Scheduler
+    cfg = get_config(arch, smoke=True)
+    if head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    cass = CassandraConfig(variant=1, gamma=3)
+    gen = torch.Generator(device=card).manual_seed(7)
+    packed = format_params(init_params(cfg, gen, device=card), cass)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
+                           device=card).to(torch.int32)
+    key = "frame_embeds" if cfg.frontend == "audio" else "patch_embeds"
+    extra = {key: torch.randn((3, cfg.frontend_tokens, cfg.d_model),
+                              generator=gen, device=card).to(torch.bfloat16)}
+    eng = Engine(cfg, packed, cass=cass, ecfg=EngineConfig(gamma=3),
+                 device=card)
+    n_dec = cfg.n_layers * (8 if cfg.cross_attention else 7) + 1
+    DM.draft_matmul.launches = KT.kv_encode.launches = 0
+    UD.kv_view.launches = 0
+    spec, st = eng.generate({"tokens": prompt, **extra}, max_new=12)
+    assert DM.draft_matmul.launches == st["draft_passes"] * n_dec
+    assert KT.kv_encode.launches == 2 * (1 + st["cycles"])
+    assert UD.kv_view.launches > 0
+    assert AR.verify_gap(eng, prompt, 3, 4, extra) == 0.0
+    toks, _ = AR.ar_steps(eng, prompt, 12, 4, extra)
+    assert torch.equal(spec[:, :12].cpu(), toks.cpu())
+    if cfg.cross_attention:
+        from repro_torch.serving.engine import spec_decode_step
+        lg, cache = AR.prefill(eng, prompt, 40, extra)
+        before = [{k: t.clone() for k, t in g["e0"].items()}
+                  for g in cache["cross"]]
+        cur = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        with torch.inference_mode():
+            for _ in range(3):
+                res, cache = spec_decode_step(eng.rt, packed, cache, cur,
+                                              eng.ecfg)
+                cur = res.next_token[:, None]
+        for g, b in zip(cache["cross"], before):
+            for k in b:
+                assert torch.equal(g["e0"][k].view(torch.int16),
+                                   b[k].view(torch.int16))
+    with pytest.raises(NotImplementedError, match="token-prompt only"):
+        Scheduler(cfg, packed, cass=cass, device=card)

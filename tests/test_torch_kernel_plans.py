@@ -12,6 +12,9 @@
   ``paged_gqa_packed`` run as its own tests run it on the CPU (``jnp`` and
   Pallas ``interpret``), on inputs made from a numpy seed.
 * ``mx_view``: its plan covers every block of a C-2 tensor exactly once.
+* ``kv_view``: its plan covers every vector exactly once at every head dim
+  the kernels take, 96 (phi-3-vision) included, with runs on 16-vector
+  boundaries.
 * ``paged_mla``: its table split covers the table and cuts it only while
   the (row, pair tile) grid leaves SMs idle (its plain split walk is
   held to the reference in ``test_torch_mla.py``).
@@ -30,6 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.format import CassandraConfig, format_weight
 from repro_torch.kernels import draft_matmul as DM
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import unary_decode as UD
 from repro_torch.serving import kvcache as KC
 
 
@@ -67,10 +71,13 @@ def _main_path_shapes():
     width: Llama-3-8B, the dense GQA family, DBRX (attention and lm_head;
     its experts stay plain), DeepSeek-V3 (MLA, its dense FFN and the
     routed layers' shared expert), falcon-mamba-7b and Jamba (its Mamba
-    mixers, attention, dense FFN and lm_head)."""
+    mixers, attention, dense FFN and lm_head), whisper-medium (encoder and
+    decoder attention, cross-attention, the GELU FFN and the odd-width
+    lm_head) and phi-3-vision-4.2b."""
     shapes = set()
     for arch in ("llama3-8b", "qwen3-4b", "qwen3-1.7b", "qwen2.5-3b",
-                 "nemotron-4-15b", "mistral-large-123b", "dbrx-132b"):
+                 "nemotron-4-15b", "mistral-large-123b", "dbrx-132b",
+                 "whisper-medium", "phi-3-vision-4.2b"):
         shapes |= _gqa_shapes(get_config(arch))
     ds = get_config("deepseek-v3-671b")
     d = ds.d_model
@@ -113,8 +120,15 @@ def test_main_path_shapes_are_the_models():
     # 7b's 5 (in_proj 4096 -> 16384, x_proj 8192 -> 288, dt_proj 256 ->
     # 8192, out_proj 8192 -> 4096, lm_head 4096 -> 65024) and Jamba's
     # lm_head 4096 -> 65536 (its mixers are falcon-mamba's, its attention
-    # and FFN Llama's)
-    assert len(MAIN_SHAPES) == 43
+    # and FFN Llama's), whisper-medium's 3 new (1024 -> 1024 for every
+    # attention and cross-attention projection, up 1024 -> 4096, lm_head
+    # 1024 -> 51865, an odd width; its down 4096 -> 1024 is Llama's wk)
+    # and phi-3-vision-4.2b's 4 (3072 -> 3072, 3072 <-> 8192, lm_head
+    # 3072 -> 32064)
+    assert len(MAIN_SHAPES) == 50
+    assert {(1024, 1024), (1024, 4096), (4096, 1024), (1024, 51865),
+            (3072, 3072), (3072, 8192), (8192, 3072),
+            (3072, 32064)} <= set(MAIN_SHAPES)
     assert {(4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
             (4096, 65024), (4096, 65536)} <= set(MAIN_SHAPES)
     assert (7168, 576) in MAIN_SHAPES and (4096, 1024) in MAIN_SHAPES
@@ -485,3 +499,23 @@ def test_mla_split_plan_covers_the_table_and_splits_an_idle_grid(
         assert tiles * splits <= max(PA.MLA_TARGET_CTAS, tiles)
         assert splits == -(-max(mb, 1) // bps)
     assert PA.mla_split_plan(b, h, t, mb) == (bps, splits)
+
+
+@pytest.mark.parametrize("d", UD.KV_HEAD_DIMS)
+@pytest.mark.parametrize("rows", [1, 17, 96, 4096, 131075])
+def test_kv_view_plan_at_every_head_dim(d, rows):
+    """``kv_view``'s runs are multiples of 16 vectors of at most 8192
+    values at every head dim, 96 too (8192 // 96 = 85 is not a multiple
+    of 16: the run takes 80), and the persistent CTAs cover every vector
+    exactly once."""
+    chunk, ctas = UD.kv_view_plan(rows, d)
+    assert chunk % 16 == 0 and 16 <= chunk and chunk * d <= 8192
+    if d == 96 and rows >= 80 * UD.KV_VIEW_CTAS:
+        assert chunk == 80
+    runs = -(-rows // chunk)
+    assert ctas == min(runs, UD.KV_VIEW_CTAS)
+    owned = np.zeros(rows, np.int64)
+    for c in range(ctas):
+        for q in range(c, runs, ctas):
+            owned[q * chunk:min(rows, (q + 1) * chunk)] += 1
+    assert (owned == 1).all()

@@ -102,7 +102,7 @@ def _books(v: np.ndarray):
     return (("default", pdef, jdef), ("built", built, (eor, roe)))
 
 
-@pytest.mark.parametrize("d", [64, 128, 512])
+@pytest.mark.parametrize("d", [64, 96, 128, 512])
 def test_kv_store_codec_matches_reference(d):
     rng = np.random.default_rng(d)
     v = _edge_rows(rng, 24, d)
@@ -164,7 +164,7 @@ def test_kv_store_codec_nan_rows_follow_the_ports_selection():
                                       vb[r, slots] & 0xFFF0)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256, 512])
 def test_radix_select_model_equals_kv_topk_plain(d):
     """The kernels' rule (threshold T by radix select over the 15-bit
     keys, ties by position, NaN always set) equals the rank rule of

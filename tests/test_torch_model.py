@@ -238,15 +238,18 @@ def test_layers_match_reference():
                                     dict(frontend="audio",
                                          frontend_tokens=16)])
 def test_other_families_raise(change):
-    """What the port does not run yet raises, naming the ROADMAP item:
-    encoder-decoder, a vision or audio frontend and the audio family
-    (MoE, MLA with experts and single-branch FFNs run since the dense-GQA
-    and MoE slice, Mamba mixers since the SSM slice:
-    ``test_torch_ssm.py``)."""
+    """What raised until the encoder-decoder slice now builds: an encoder
+    with cross-attention, a vision or audio frontend and the audio family
+    give the reference's tree (an encoder and ``xattn``; layer norms and
+    biased projections for the audio family; the frontends add no
+    parameters). Parity: ``tests/test_torch_encdec.py``."""
     cfg = dataclasses.replace(get_config("llama3-8b", smoke=True), **change)
     assert isinstance(cfg, ModelConfig)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, torch.Generator(), device="cpu")
+    params = M.init_params(cfg, torch.Generator(), device="cpu")
+    e0 = params["dec"][0]["e0"]
+    assert ("enc" in params) == ("xattn" in e0) == cfg.is_encdec
+    assert ("bias" in e0["norm1"]) == ("pos_embed" in params) == (
+        cfg.family == "audio")
 
 
 @pytest.mark.slow

@@ -7,7 +7,8 @@ two widths sum their products in different orders. ``ar_steps`` runs the
 autoregressive loop at any width straight through ``forward_decode`` and
 ``commit`` (the current token repeated, position 0 read), so speculative
 tokens can also be held to an autoregressive run with the verify pass's
-own numerics.
+own numerics. ``extra`` carries a frontend's embeddings (``frame_embeds``
+or ``patch_embeds``) into the prefill, as ``Engine.generate`` does.
 """
 from __future__ import annotations
 
@@ -20,24 +21,30 @@ from repro_torch.models import model as M
 from repro_torch.serving import engine as E, kvcache as KC
 
 
-def prefill(eng, tokens: torch.Tensor, s_max: int):
-    """(last-position logits, cache) of the target view after the prompt."""
+def prefill(eng, tokens: torch.Tensor, s_max: int,
+            extra: dict | None = None):
+    """(last-position logits, cache) of the target view after the prompt
+    (and a vision frontend's patches, which ``s_max`` need not count)."""
     rt = dataclasses.replace(eng.rt, view="target")
+    if eng.cfg.frontend == "vision":
+        s_max += eng.cfg.frontend_tokens
     cache = KC.init_cache(eng.cfg, eng.cass, tokens.shape[0], s_max,
                           packed=eng.cass is not None,
                           device=tokens.device)
-    lg, cache = M.forward_prefill(rt, eng.params, {"tokens": tokens}, cache)
+    lg, cache = M.forward_prefill(rt, eng.params,
+                                  {"tokens": tokens, **(extra or {})}, cache)
     return lg[:, -1], cache
 
 
-def ar_steps(eng, tokens: torch.Tensor, n: int, width: int):
+def ar_steps(eng, tokens: torch.Tensor, n: int, width: int,
+             extra: dict | None = None):
     """Greedy autoregressive decode of ``n`` tokens with every step run at
     ``width``. Returns (tokens (B,n) int32, logits (B,n,V) f32: the
     prefill's last position, then each step's position 0)."""
     rt = dataclasses.replace(eng.rt, view="target")
     b = tokens.shape[0]
     with torch.inference_mode():
-        lg, cache = prefill(eng, tokens, tokens.shape[1] + n + width)
+        lg, cache = prefill(eng, tokens, tokens.shape[1] + n + width, extra)
         logits = [lg.to(torch.float32)]
         toks = [torch.argmax(lg, -1).to(torch.int32)[:, None]]
         zeros = torch.zeros(b, dtype=torch.int32, device=tokens.device)
@@ -50,14 +57,15 @@ def ar_steps(eng, tokens: torch.Tensor, n: int, width: int):
     return torch.cat(toks, 1), torch.stack(logits, 1)
 
 
-def verify_gap(eng, tokens: torch.Tensor, gamma: int, width: int) -> float:
+def verify_gap(eng, tokens: torch.Tensor, gamma: int, width: int,
+               extra: dict | None = None) -> float:
     """Largest |logit| difference between γ+1 autoregressive steps at
     ``width`` and one verify pass over the same tokens (the first γ+1
     positions after the prompt)."""
-    toks, logits = ar_steps(eng, tokens, gamma + 2, width)
+    toks, logits = ar_steps(eng, tokens, gamma + 2, width, extra)
     rt = dataclasses.replace(eng.rt, view="target")
     with torch.inference_mode():
-        _, cache = prefill(eng, tokens, tokens.shape[1] + gamma + 1)
+        _, cache = prefill(eng, tokens, tokens.shape[1] + gamma + 1, extra)
         lv, _ = M.forward_decode(rt, eng.params, toks[:, :gamma + 1], cache)
     return float((logits[:, 1:] - lv.to(torch.float32)).abs().max())
 
