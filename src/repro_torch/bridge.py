@@ -19,7 +19,7 @@ _VIEWS = {"uint32": np.int32, "uint16": np.int16}
 
 
 def _leaf(a: np.ndarray, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(np.shape(a))   # 0-d stays 0-d
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)

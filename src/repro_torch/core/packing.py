@@ -124,7 +124,8 @@ def format_params(params, cass: CassandraConfig,
     """Replace packable weights with Cassandra partitions and prepare the
     draft kernel's operands beside each spec (see module doc). With
     ``calib``, a weight whose path has a norm of its input width is scored
-    by Wanda, any other by |W|."""
+    by Wanda, any other by |W|. A multi-token-prediction head (``mtp``,
+    read by the training loss only) is left out of the served tree."""
     from repro_torch.kernels.draft_matmul import prepare_params
 
     def walk(node, parent_key: str, path: str):
@@ -147,6 +148,7 @@ def format_params(params, cass: CassandraConfig,
                     for i, v in enumerate(node)]
         return node
 
+    params = {k: v for k, v in params.items() if k != "mtp"}
     return prepare_params(walk(params, "", ""), cass)
 
 

@@ -12,6 +12,7 @@ Every matmul weight is a plain bf16 tensor or a Cassandra-packed
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -45,6 +46,15 @@ class Runtime:
     n_experts_per_tok`` or more no token is ever dropped, so no row's
     output depends on what else rides in its batch.
 
+    ``remat`` recomputes each layer block's activations in the backward
+    pass of a ``mode="train"`` forward (``torch.utils.checkpoint``, non-
+    reentrant) instead of keeping them: ``remat_policy`` ``"full"`` keeps
+    the block's input only, ``"dots"`` the outputs of its matrix products
+    without batch dimensions too (the reference's
+    ``dots_with_no_batch_dims_saveable``: ``aten.mm`` / ``addmm``, not the
+    attention's batched products). The reference's ``unroll`` serves XLA's
+    cost analysis; the port's layer loops are Python loops already.
+
     There is no ``ssm_chunk``: the reference's scan chunk sizes its
     associative scan, and the port's Mamba recurrence runs step by step
     (``models/ssm.py``), which has no chunk.
@@ -57,6 +67,34 @@ class Runtime:
     attn_chunk_q: int = 1024
     attn_chunk_k: int = 1024
     moe_capacity_factor: float = 1.25   # per-expert slots vs perfect balance
+    remat: bool = False                 # checkpoint each layer block (train)
+    remat_policy: str = "full"          # full | dots (save matmul outputs)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of products without batch dimensions, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(rt: Runtime, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``rt.remat`` is
+    set and autograd records (otherwise there is nothing to keep)."""
+    if not (rt.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    from torch.utils import checkpoint as C
+    if rt.remat_policy == "dots":
+        kw = {"context_fn": functools.partial(
+            C.create_selective_checkpoint_contexts, _save_dots)}
+    elif rt.remat_policy == "full":
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat_policy {rt.remat_policy!r}")
+    return C.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def is_packed(w) -> bool:

@@ -9,7 +9,12 @@ family and a vision frontend's backbone.
                       verification) against the cache; returns per-layer
                       K/V updates and SSM states for the engine to commit.
 ``forward_train``   — full-sequence pass with no cache, all positions'
-                      logits: the Wanda calibration forward.
+                      logits (or the final hidden states): the Wanda
+                      calibration forward and the training forward.
+``loss_fn``         — the training loss: the fused, chunked unembed + CE
+                      (``_chunked_ce``), the z-loss, MoE's balance term and
+                      DeepSeek's multi-token-prediction term; its backward
+                      is autograd's (``training/trainer.py``).
 
 Parameters keep the reference's tree: stacked ``(R, …)`` leaves per layer
 group, ``(in, out)`` weights. The reference's ``lax.scan`` over R is a
@@ -28,10 +33,16 @@ rope; its encoder (``enc``, ``enc_norm``) runs the frame embeddings plus
 sinusoidal positions through non-causal blocks, and each decoder
 attention block adds cross-attention (``xattn``, ``norm_x``) over the
 encoder output, whose K/V the prefill caches as plain bf16. A vision
-frontend's patch embeddings are prepended to the text tokens. Training
-(the loss and its backward) is ROADMAP Queue 1 item 5. Multi-token
-prediction heads (``mtp_depth``) feed only the reference's training loss,
-so serving neither builds nor reads them.
+frontend's patch embeddings are prepended to the text tokens.
+
+Training runs ``mode="train"`` with autograd: each layer group's stacked
+leaves are split with ``torch.unbind`` (whose backward stacks the R layer
+gradients once, where indexing would add R full-size zero tensors), and
+with ``Runtime.remat`` each layer block runs under
+``torch.utils.checkpoint``. A multi-token-prediction head (``mtp``,
+``mtp_depth > 0``) feeds only the training loss: ``init_mtp`` builds it
+beside ``init_params``' tree, and ``format_params`` and serving leave it
+out.
 """
 from __future__ import annotations
 
@@ -257,7 +268,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``pos_embed`` table of ``max_wavelength_pos + 128`` rows. Draws come
     from ``generator`` (on ``device``), one layer (an expert) at a time,
     so no full-depth f32 tensor ever exists. The tree is the reference's
-    without its ``mtp`` head (training only)."""
+    without its ``mtp`` head, which only the training loss reads:
+    ``init_mtp`` adds it (``launch/train.py`` does for ``mtp_depth > 0``)."""
     params: Params = {
         "dec": _init_groups(generator, cfg, cfg.cross_attention, dtype,
                             device),
@@ -277,6 +289,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             generator, (cfg.max_wavelength_pos + 128, cfg.d_model), 0.02,
             dtype, device)}
     return params
+
+
+def init_mtp(cfg: ModelConfig, generator: torch.Generator,
+             dtype=torch.bfloat16, device="cuda") -> dict:
+    """The reference's ``params["mtp"]`` (``init_params``, ``mtp_depth >
+    0``): the norms of the hidden state and of the next token's embedding,
+    ``proj`` (2·d_model → d_model, N(0, 1/(2·d_model))), one unstacked
+    ``"am"`` block (the model's attention, a dense MLP of ``d_ff``) and a
+    final norm."""
+    ones = lambda r, d: {"scale": torch.ones((r, d), dtype=torch.float32,
+                                             device=device)}
+    attn = (_init_mla(generator, 1, cfg, dtype, device, ones) if cfg.mla
+            else _init_gqa(generator, 1, cfg, dtype, device, ones))
+    block = {"norm1": _norm_init(cfg, (1,), device), "attn": attn,
+             "ffn": _init_mlp(generator, 1, cfg, cfg.d_ff, dtype, device),
+             "norm2": _norm_init(cfg, (1,), device)}
+    return {
+        "norm_h": _norm_init(cfg, (), device),
+        "norm_e": _norm_init(cfg, (), device),
+        "proj": _index(_dense_init(generator, 1, 2 * cfg.d_model,
+                                   cfg.d_model, dtype, device), 0),
+        "block": _index(block, 0),
+        "final_norm": _norm_init(cfg, (), device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +512,18 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unbind(tree, repeats: int) -> list:
+    """The R layers of a stacked (R, …) tree, through ``torch.unbind``
+    (views; one stack of the R gradients in the backward)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, repeats) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(repeats)]
+    if isinstance(tree, list):
+        parts = [_unbind(v, repeats) for v in tree]
+        return [[p[r] for p in parts] for r in range(repeats)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack_updates(per_layer: list[dict]) -> dict:
     if not per_layer or not per_layer[0]:
         return {}
@@ -498,12 +546,14 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
 
     Returns (x, aux, updates_groups): updates stacked along R like the
     reference's scan outputs, aux the MoE blocks' summed aux ({} without
-    one)."""
+    one). In ``mode="train"`` the layers come from ``_unbind`` and, with
+    ``rt.remat``, each block runs under ``layers.remat_call``."""
     aux = {}
     updates_groups = []
     for gi, entries in enumerate(entries_per_group):
         gp = groups_params[gi]
         repeats = next(iter(gp["e0"]["norm1"].values())).shape[0]
+        layers = _unbind(gp, repeats) if mode == "train" else None
         per_layer = []
         for r in range(repeats):
             g_upd = {}
@@ -511,17 +561,25 @@ def _scan_groups(rt: Runtime, groups_params, entries_per_group, x,
                 ekey = f"e{j}"
                 if rt.collector is not None:
                     rt.collector.layer(f"{scope}[{gi}].{ekey}", r)
-                pick = lambda grp: (_index(grp[gi][ekey], r)
-                                    if grp is not None and ekey in grp[gi]
-                                    else None)
-                x, upd, baux = _block(
-                    rt, _index(gp[ekey], r), entry, x, positions, mode=mode,
-                    causal=causal, centry=pick(cache_groups),
-                    scratch=pick(scratch_groups), length=length,
-                    scratch_len=scratch_len, book=book, s_max=s_max,
-                    ventry=pick(view_groups), table=table,
-                    suffix_from=suffix_from, cross_entry=pick(cross_groups),
-                    enc_out=enc_out)
+                if mode == "train":
+                    bp = layers[r][ekey]
+                    x, upd, baux = L.remat_call(
+                        rt, lambda xx, bp=bp, entry=entry: _block(
+                            rt, bp, entry, xx, positions, mode=mode,
+                            causal=causal, enc_out=enc_out), x)
+                else:
+                    pick = lambda grp: (_index(grp[gi][ekey], r)
+                                        if grp is not None
+                                        and ekey in grp[gi] else None)
+                    x, upd, baux = _block(
+                        rt, _index(gp[ekey], r), entry, x, positions,
+                        mode=mode, causal=causal,
+                        centry=pick(cache_groups),
+                        scratch=pick(scratch_groups), length=length,
+                        scratch_len=scratch_len, book=book, s_max=s_max,
+                        ventry=pick(view_groups), table=table,
+                        suffix_from=suffix_from,
+                        cross_entry=pick(cross_groups), enc_out=enc_out)
                 if upd:
                     g_upd[ekey] = upd
                 if baux is not None:
@@ -582,15 +640,17 @@ def _encode(rt: Runtime, params, batch: dict):
 # Public forwards
 # ---------------------------------------------------------------------------
 
-def forward_train(rt: Runtime, params: Params, batch: dict):
-    """Full-sequence pass with no cache (the reference's ``forward_train``
-    forward; the loss and its backward belong to the training slice).
-    ``batch`` holds ``tokens``, and ``frame_embeds`` (an encoder-decoder
-    model) or ``patch_embeds`` (a vision frontend, prepended). Returns
-    (logits (B,S,V) f32, aux): aux holds the MoE blocks' summed
-    ``balance_loss`` (f32) and ``dropped`` (int32), zeros without one, as
-    the reference's. With ``rt.collector`` set it is the Wanda calibration
-    forward."""
+def forward_train(rt: Runtime, params: Params, batch: dict,
+                  return_hidden: bool = False):
+    """Full-sequence pass with no cache (the reference's
+    ``forward_train``). ``batch`` holds ``tokens``, and ``frame_embeds``
+    (an encoder-decoder model) or ``patch_embeds`` (a vision frontend,
+    prepended). Returns (logits (B,S,V) f32, or with ``return_hidden`` the
+    final-normed hidden states (B,S,d), aux): aux holds the MoE blocks'
+    summed ``balance_loss`` (f32) and ``dropped`` (int32), zeros without
+    one, as the reference's, and with an ``mtp`` head ``mtp_hidden``
+    (``_mtp_hidden``). With ``rt.collector`` set it is the Wanda
+    calibration forward."""
     cfg = rt.cfg
     enc_out = _encode(rt, params, batch)
     x = _embed_inputs(rt, params, batch["tokens"], batch.get("patch_embeds"))
@@ -603,7 +663,24 @@ def forward_train(rt: Runtime, params: Params, batch: dict):
                "dropped": torch.zeros((), dtype=torch.int32,
                                       device=x.device)}
     x = L.norm(rt, params["final_norm"], x)
+    if "mtp" in params:
+        aux["mtp_hidden"] = _mtp_hidden(rt, params, x, batch["tokens"])
+    if return_hidden:
+        return x, aux
     return L.unembed(rt, params, x), aux
+
+
+def _mtp_hidden(rt: Runtime, params, h, tokens):
+    """DeepSeek's multi-token prediction: the hidden state predicting token
+    t+2 from (h_t, embed(token t+1)), through ``proj``, one ``"am"`` block
+    and a final norm (reference ``_mtp_hidden``)."""
+    mp = params["mtp"]
+    h_in = L.norm(rt, mp["norm_h"], h[:, :-1])
+    e_in = L.norm(rt, mp["norm_e"], L.embed(params["embed"], tokens[:, 1:]))
+    z = L.dense(rt, mp["proj"], torch.cat([h_in, e_in], dim=-1), "mtp.proj")
+    positions = torch.arange(z.shape[1], device=z.device)
+    z, _, _ = _block(rt, mp["block"], "am", z, positions, mode="train")
+    return L.norm(rt, mp["final_norm"], z)
 
 
 def forward_prefill(rt: Runtime, params: Params, batch: dict, cache: dict):
@@ -731,3 +808,74 @@ def _cache_s_max(cfg: ModelConfig, cache: dict) -> int:
                 leaf = leaf["spec"]["bitmap"]
             return mb * leaf.shape[2]                 # (R,B,S,…) | (R,NB,BS,…)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(rt: Runtime, params: Params, batch: dict,
+            z_loss: float = 1e-4, balance_coef: float = 1e-2,
+            mtp_coef: float = 0.3):
+    """Causal LM loss (the reference's ``loss_fn``): CE + ``z_loss`` · z
+    over the hidden states that predict ``labels[:, 1:]`` (a vision
+    model's patches, which come first, left out), MoE's ``balance_coef`` ·
+    balance loss, and for ``mtp_depth > 0`` ``mtp_coef`` · the MTP head's
+    CE on ``labels[:, 2:]``. Returns (loss, metrics): ``ce``, ``z``, and
+    ``balance`` / ``dropped`` (MoE), ``mtp_ce``, ``loss``."""
+    cfg = rt.cfg
+    if cfg.mtp_depth > 0 and "mtp" not in params:
+        raise ValueError(f"{cfg.name} has mtp_depth {cfg.mtp_depth} but the "
+                         "parameters have no 'mtp' head (model.init_mtp)")
+    hidden, aux = forward_train(rt, params, batch, return_hidden=True)
+    labels = batch["labels"]
+    if hidden.shape[1] != labels.shape[1]:      # vlm: patches prepended
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
+    ce, z = _chunked_ce(rt, params, hidden[:, :-1], labels[:, 1:])
+    loss = ce + z_loss * z
+    metrics = {"ce": ce, "z": z}
+    if cfg_has_moe(cfg):
+        loss = loss + balance_coef * aux["balance_loss"]
+        metrics["balance"] = aux["balance_loss"]
+        metrics["dropped"] = aux["dropped"]
+    if cfg.mtp_depth > 0:
+        mtp_h = aux["mtp_hidden"]                # predicts t+2 at index t
+        mce, _ = _chunked_ce(rt, params, mtp_h[:, :-1], labels[:, 2:])
+        loss = loss + mtp_coef * mce
+        metrics["mtp_ce"] = mce
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _chunked_ce(rt: Runtime, params, hidden, labels, chunk: int = 512):
+    """Fused unembed + cross-entropy over sequence chunks (f32): per chunk
+    of ``ch`` positions (512, or the largest divisor of S below it) the f32
+    logits (B,ch,V), logsumexp minus the gold logit, and the squared
+    logsumexp for the z-loss, summed chunk by chunk in order. Under
+    autograd each chunk's body runs under ``torch.utils.checkpoint``, so
+    its logits are recomputed in the backward and never kept. Returns
+    (mean CE, mean lse²) over the B·S positions."""
+    b, s, _ = hidden.shape
+    ch = min(chunk, s)
+    while s % ch:                                # largest divisor <= chunk
+        ch -= 1
+
+    def step(h, lab):
+        logits = L.unembed(rt, params, h)        # (B,ch,V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None].to(torch.int64))[
+            ..., 0]
+        return torch.sum(lse - gold), torch.sum(torch.square(lse))
+
+    ce_sum = z_sum = torch.zeros((), dtype=torch.float32,
+                                 device=hidden.device)
+    for i in range(s // ch):
+        args = (hidden[:, i * ch:(i + 1) * ch], labels[:, i * ch:(i + 1) * ch])
+        if torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+            c, z = checkpoint(step, *args, use_reentrant=False)
+        else:
+            c, z = step(*args)
+        ce_sum, z_sum = ce_sum + c, z_sum + z
+    n = torch.tensor(b * s, dtype=torch.float32, device=hidden.device)
+    return ce_sum / n, z_sum / n

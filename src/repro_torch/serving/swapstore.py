@@ -39,21 +39,7 @@ import dataclasses
 
 import torch
 
-
-def tree_map(fn, *trees):
-    """``fn`` over the tensors of nested dicts / lists of equal structure."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return [tree_map(fn, *z) for z in zip(*trees)]
-    return fn(*trees)
-
-
-def tree_leaves(tree) -> list:
-    out: list = []
-    tree_map(out.append, tree)
-    return out
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 def _tree_nbytes(tree) -> int:

@@ -1372,7 +1372,7 @@ def _random_pool(card, variant, seed):
     """A SMOKE paged cache on the card with arbitrary bits in every store
     leaf (bf16 leaves finite)."""
     from repro_torch.serving import kvcache as KC
-    from repro_torch.serving.swapstore import tree_map
+    from repro_torch.core.tree import tree_map
     cfg = get_config("llama3-8b", smoke=True)
     cass = CassandraConfig(variant=variant, gamma=3) if variant else None
     cache = KC.init_paged_cache(cfg, cass, 2, 12, 4, 5, packed=bool(variant),
@@ -1391,7 +1391,7 @@ def _random_pool(card, variant, seed):
 
 
 def _pool_leaves(cache) -> list:
-    from repro_torch.serving.swapstore import tree_leaves
+    from repro_torch.core.tree import tree_leaves
     return tree_leaves(cache["dec"])
 
 
@@ -1410,7 +1410,8 @@ def test_pool_block_moves_on_card(card, variant):
     host buffers; ``put_async`` then ``finalize`` gives the bytes ``put``
     gives; the restore from a pinned chain puts them back bit for bit."""
     from repro_torch.serving import kvcache as KC
-    from repro_torch.serving.swapstore import SpillStore, tree_leaves
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.serving.swapstore import SpillStore
     cache = _random_pool(card, variant, seed=variant + 5)
     before = [t.clone() for t in _pool_leaves(cache)]
     src = torch.tensor([2, 5, 7, 0], dtype=torch.int32, device=card)
@@ -1977,3 +1978,284 @@ def test_encdec_engine_on_card(card, arch, head_dim):
                                    b[k].view(torch.int16))
     with pytest.raises(NotImplementedError, match="token-prompt only"):
         Scheduler(cfg, packed, cass=cass, device=card)
+
+
+# ---------------------------------------------------------------------------
+# Training: train_step card vs CPU, remat, checkpoint byte views
+# ---------------------------------------------------------------------------
+
+def _tree_on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _train_setup(device, arch="llama3-8b", dtype=torch.bfloat16):
+    """SMOKE params of ``dtype`` (from a CPU generator) and a batch on
+    ``device``."""
+    from repro_torch.data.pipeline import DataConfig, _one_batch
+    from repro_torch.models.model import init_mtp
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(29)
+    params = init_params(cfg, gen, dtype=dtype, device="cpu")
+    if cfg.mtp_depth:
+        params["mtp"] = init_mtp(cfg, gen, dtype=dtype, device="cpu")
+    params = _tree_on(params, device)
+    batch = _one_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                  global_batch=4), 0, device)
+    return cfg, params, batch
+
+
+def _route_log(monkeypatch):
+    """Records every MoE layer's routing (``ffn._route``): a list of
+    (top-k experts, router probabilities) on the host, one per call. While
+    ``log["replay"]`` holds a list of top-k sets, each call takes the next
+    one instead of its own (the weights renormalised from its own
+    probabilities) and logs its own set."""
+    from repro_torch.models import ffn as F
+    log = {"calls": [], "replay": []}
+    route = F._route
+
+    def logged(cfg, p, xt):
+        rprobs, top_p, top_e = route(cfg, p, xt)
+        log["calls"].append((top_e.cpu(), rprobs.cpu()))
+        if log["replay"]:
+            top_e = log["replay"].pop(0).to(xt.device)
+            top_p = torch.gather(rprobs, 1, top_e)
+            top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return rprobs, top_p, top_e
+    monkeypatch.setattr(F, "_route", logged)
+    return log
+
+
+def _ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """One unit in the last place of |x| in ``dtype`` (bf16 or f32), at
+    least the smallest normal's."""
+    mant = 7 if dtype == torch.bfloat16 else 23
+    _, e = torch.frexp(torch.clamp(x.abs(), min=torch.finfo(dtype).tiny))
+    return torch.ldexp(torch.ones_like(x), e - 1 - mant)
+
+
+def _moments_host(p, opt) -> dict:
+    """Per moment, per leaf: (its f32 value, one quantum of it) on the
+    host; an int8 moment dequantized, its quantum its block's scale, an
+    fp32 moment's quantum 0."""
+    from repro_torch.training import optim as O
+    out = {}
+    for k in "mv":
+        rows = []
+        for s, x in zip(O.flat_up_to(p, opt[k]), O.tree_leaves(p)):
+            if isinstance(s, dict):
+                q = s["scale"].repeat_interleave(O.QBLOCK, -1)
+                rows.append((O._dq8(s, x.shape).float().cpu(),
+                             q[..., :x.shape[-1]].float().cpu()))
+            else:
+                rows.append((s.float().cpu(), torch.zeros(())))
+        out[k] = rows
+    return out
+
+
+def _train_step_both(card, arch, dtype, state_dtype, log=None):
+    """One ``train_step``'s pieces (lr 1e-3) on the CPU, then the card:
+    per device the loss, drops, gradients, old and new parameters and the
+    moments, all f32 on the host. With ``log`` the card replays the CPU's
+    routing. ``ref`` is the CPU's optimizer applied to the card's own
+    gradients from the same parameters."""
+    from repro_torch.core.tree import tree_unflatten
+    from repro_torch.models.layers import Runtime
+    from repro_torch.training import optim as O
+    from repro_torch.training import trainer as T
+    tcfg = T.TrainConfig(opt=O.OptConfig(lr=1e-3, warmup_steps=1,
+                                         state_dtype=state_dtype))
+    out = {}
+    for dev in ("cpu", card):
+        cfg, p, batch = _train_setup(dev, arch, dtype)
+        if log is not None and dev != "cpu":
+            log["cpu"] = log["calls"]
+            log["calls"], log["replay"] = [], [e for e, _ in log["cpu"]]
+        rt = Runtime(cfg=cfg, moe_capacity_factor=max(
+            1.0, cfg.n_experts / max(cfg.n_experts_per_tok, 1)))
+        g, m = T.grads_fn(rt, p, batch, tcfg)
+        for a, b in zip(O.tree_leaves(g), O.tree_leaves(p)):
+            assert a.dtype == b.dtype and a.device == b.device
+        graw = [x.cpu() for x in O.tree_leaves(g)]
+        # (a copy: the update writes the parameters in place)
+        old = [x.float().cpu().clone() for x in O.tree_leaves(p)]
+        p, opt, _ = O.apply_updates(p, g, O.init_opt_state(p, tcfg.opt),
+                                    tcfg.opt)
+        out[str(dev)] = {
+            "loss": m["loss"].item(),
+            "dropped": int(m["dropped"]) if "dropped" in m else 0,
+            "g": [x.float() for x in graw], "graw": graw,
+            "old": old, "new": [x.float().cpu() for x in O.tree_leaves(p)],
+            "dtypes": [x.dtype for x in O.tree_leaves(p)],
+            **_moments_host(p, opt)}
+    d = out[str(card)]
+    _, p, _ = _train_setup("cpu", arch, dtype)
+    p, opt, _ = O.apply_updates(p, tree_unflatten(p, d["graw"]),
+                                O.init_opt_state(p, tcfg.opt), tcfg.opt)
+    d["ref"] = {"new": [x.float() for x in O.tree_leaves(p)],
+                **_moments_host(p, opt)}
+    return out["cpu"], d
+
+
+def _assert_step_close(c, d, tol):
+    """The card's step (``d``) against the CPU's (``c``): the loss within
+    ``tol`` / 50 relative; each gradient leaf and each first moment within
+    a relative error of ``tol`` and a cosine of sqrt(1 - tol²), each second
+    moment within 2 tol (it is the gradient squared). Then the card's
+    optimizer against the CPU's on the card's own gradients (``d["ref"]``),
+    element by element: the new parameters within one ulp of max(|p_old|,
+    |p_new|) in the leaf's dtype plus 2^-20 of the step (the global norm
+    sums in another order, and the step's f32 roundings then fall
+    elsewhere: a few ulps of the step), each moment within 2^-20 of itself
+    plus one quantum (an int8 code on a rounding tie); a missing or
+    sign-flipped update is lr off. At least 90% of the elements whose
+    gradient exceeds a tenth of their leaf's rms moved on the card.
+    Returns the worst gradient error."""
+    assert abs(d["loss"] - c["loss"]) <= tol / 50 * abs(c["loss"])
+    worst = 0.0
+    for a, b in zip(d["g"], c["g"]):
+        a, b = a.double(), b.double()     # a cosine near 1 needs f64 sums
+        if b.norm() == 0:
+            assert a.norm() == 0
+            continue
+        rel = ((a - b).norm() / b.norm()).item()
+        worst = max(worst, rel)
+        assert rel <= tol
+        assert (a * b).sum() >= (1 - tol ** 2) ** 0.5 * a.norm() * b.norm()
+    ref = d["ref"]
+    for key, t in (("m", tol), ("v", 2 * tol)):
+        for (a, _), (b, _) in zip(d[key], c[key]):
+            assert (a - b).norm() <= t * b.norm(), key
+        for (a, _), (b, q) in zip(d[key], ref[key]):
+            assert ((a - b).abs() <= 2 ** -20 * b.abs()
+                    + q * (1 + 2 ** -10)).all(), key
+    kept = moved = 0
+    for g, old, new, want, dt in zip(d["g"], d["old"], d["new"],
+                                     ref["new"], d["dtypes"]):
+        big = torch.maximum(old.abs(), torch.maximum(new.abs(), want.abs()))
+        assert ((new - want).abs() <= _ulp(big, dt)
+                + 2 ** -20 * (want - old).abs()).all()
+        keep = g.abs() > 0.1 * g.square().mean().sqrt()
+        kept += int(keep.sum())
+        moved += int((new != old)[keep].sum())
+    assert moved >= 0.9 * kept
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", ["fp32", "int8"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v3-671b"])
+def test_train_step_on_card_matches_cpu(card, arch, state_dtype,
+                                        monkeypatch):
+    """One ``train_step`` on the card against the CPU, bf16 weights, as
+    ``_assert_step_close`` holds it at tol 0.05 (bf16 activations round at
+    other places: cuBLAS sums in another order). DeepSeek-V3 runs whole
+    (MLA, its routed layers, the MTP head) at ``moe_capacity_factor =
+    n_experts / k``, so nothing is dropped. bf16 rounding moves router
+    probabilities by about 1e-3 between the devices, and a token whose
+    k-th and (k+1)-th probabilities lie closer than that may take another
+    expert set: two of 256 tokens did on an H100, and the router gradient
+    then read 0.10-0.12 relative, while with the CPU's sets replayed it
+    read 0.006. So the card replays the CPU's routing, and the test checks
+    that its own sets differ only on such near ties."""
+    log = _route_log(monkeypatch)
+    c, d = _train_step_both(card, arch, torch.bfloat16, state_dtype, log)
+    assert c["dropped"] == d["dropped"] == 0
+    flips, near, gap = 0, [], 0.0
+    for (ec, pc), (ed, pd) in zip(log["cpu"], log["calls"]):
+        k = ec.shape[1]
+        top = torch.sort(pc, -1, descending=True).values
+        margin = top[:, k - 1] - top[:, k]
+        differ = (torch.sort(ec, -1).values
+                  != torch.sort(ed, -1).values).any(-1)
+        flips += int(differ.sum())
+        near += [f"{x:.2g}" for x in margin[differ].tolist()]
+        gap = max(gap, (pd - pc).abs().max().item())
+        assert (margin[differ] <= (pd - pc).abs().max()).all()
+    worst = _assert_step_close(c, d, 0.05)
+    print(f"{arch} {state_dtype}: worst gradient leaf {worst:.4f}; "
+          f"{flips} tokens' own expert sets differed (near ties, margins "
+          f"{near}, the devices' largest probability gap {gap:.3g})")
+    if flips:
+        # the witness: the card's gradients with its own routing
+        from repro_torch.core.tree import leaves_with_paths
+        from repro_torch.models.layers import Runtime
+        from repro_torch.training import trainer as T
+        cfg, p, batch = _train_setup(card, arch)
+        rt = Runtime(cfg=cfg, moe_capacity_factor=max(
+            1.0, cfg.n_experts / max(cfg.n_experts_per_tok, 1)))
+        g, _ = T.grads_fn(rt, p, batch, T.TrainConfig())
+        rel = max((((a.float().cpu() - b).norm() / b.norm()).item(), path)
+                  for (path, a), b in zip(leaves_with_paths(g), c["g"]))
+        print(f"  with the card's own routing: worst gradient leaf "
+              f"{rel[1]} {rel[0]:.4f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v3-671b"])
+def test_train_step_on_card_matches_cpu_in_f32(card, arch, monkeypatch):
+    """The same step with f32 weights (activations f32, no TF32): the card
+    and the CPU differ only in the order of f32 sums, so the routing is
+    the same on both with nothing replayed, and the loss, gradients (the
+    MoE backward and the router's included) and moments agree within
+    ``_assert_step_close``'s tol 1e-4 (an H100 read below 1e-5)."""
+    log = _route_log(monkeypatch)
+    c, d = _train_step_both(card, arch, torch.float32, "fp32")
+    n_cpu = len(log["calls"]) // 2
+    for (ec, _), (ed, _) in zip(log["calls"][:n_cpu], log["calls"][n_cpu:]):
+        assert torch.equal(ec, ed)
+    assert c["dropped"] == d["dropped"] == 0
+    worst = _assert_step_close(c, d, 1e-4)
+    print(f"{arch} f32: worst gradient leaf {worst:.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "jamba-v0.1-52b"])
+def test_remat_on_card_equals_off(card, arch):
+    """``remat`` "full" and "dots" give no remat's gradients bit for bit on
+    the card (the recompute runs the same kernels on the same inputs)."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.training import optim as O
+    from repro_torch.training import trainer as T
+    cfg, p, batch = _train_setup(card, arch)
+    want, _ = T.grads_fn(Runtime(cfg=cfg), p, batch, T.TrainConfig())
+    for pol in ("full", "dots"):
+        got, _ = T.grads_fn(Runtime(cfg=cfg, remat=True, remat_policy=pol),
+                            p, batch, T.TrainConfig())
+        for a, b in zip(O.tree_leaves(got), O.tree_leaves(want)):
+            if a.dtype == torch.bfloat16:
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            assert torch.equal(a, b), pol
+
+
+@pytest.mark.cuda
+def test_checkpoint_bf16_byte_views_on_card(card, tmp_path):
+    """A checkpoint of card tensors stores each bf16 leaf as the uint8
+    view of its bytes (the reference's format: last axis doubled, dtype
+    name ``bfloat16``) and restores onto the card bit for bit, NaN
+    payloads, infinities and subnormals included."""
+    import json
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    bits = torch.from_numpy(np.array(
+        [0x7FC1, 0xFFA3, 0x7F80, 0xFF80, 0x0001, 0x8001, 0x3F80, 0x0000],
+        np.uint16).view(np.int16))
+    w = bits.repeat(3, 2).view(torch.bfloat16).to(card)
+    tree = {"w": w, "s": torch.tensor(5, dtype=torch.int32, device=card),
+            "q": torch.arange(-4, 4, dtype=torch.int8, device=card)}
+    path = save_checkpoint(str(tmp_path), 1, tree)
+    meta = json.load(open(f"{path}/manifest.json"))["leaves"]["['w']"]
+    assert meta["dtype"] == "bfloat16" and meta["shape"] == [3, 16]
+    raw = np.load(f"{path}/shard-0.npz")[meta["key"]]
+    assert raw.dtype == np.uint8 and raw.shape == (3, 32)
+    assert np.array_equal(raw.view(np.int16),
+                          w.view(torch.int16).cpu().numpy())
+    back = restore_checkpoint(str(tmp_path), 1, tree)
+    assert back["w"].device == w.device and back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"].view(torch.int16), w.view(torch.int16))
+    assert torch.equal(back["s"], tree["s"])
+    assert torch.equal(back["q"], tree["q"])
