@@ -227,12 +227,38 @@ these phases; any failure exits non-zero:
               prompts: phase 6's Engine gates exact, the paged Scheduler
               (kernels on) under phase 7's rule, acceptance greedy and at
               T = 1.0 beside phase 6's;
-20. report  — ``kernels: [...]``, one JSON line per the kernels table,
+20. format   — the paper's format selection (``core/dse.py``, Eq. 2) over
+              its grid, prune {0.3, 0.4, 0.5, 0.6} x truncation {0, ...,
+              5}, exp_bits 3, from a generator of its own: (a) one
+              Llama-3-8B layer's seven matrices at full width packed on
+              the card at each of the 24 weight points: ``draft_matmul``'s
+              decoded weight bit for bit and y within rtol 2e-2 / atol
+              1e-3, ``target_decode`` bit for bit against the plain chain
+              and the bf16 weights, wk's leaves against the CPU's packing,
+              ``compression_summary`` falling strictly along both axes,
+              and the layer's draft launches timed beside Eq. 2's byte
+              ratio; (b) K and V of a 128-token prefill of that layer at
+              each of the 24 KV points under the default book and under
+              ``calibrate_kv_codebook``'s: ``kv_encode`` / ``kv_view``
+              against the chains, the target view the input, the packed
+              attention on a pool of those stores (decode bit for bit, T
+              = 1 and 4 within rtol 1e-4 / atol 1e-5), edge rows under the
+              calibrated book; (c) the Engine at 2 layers at the grid's
+              corners (weights (0.3, 0) with KV (0.6, 5), and the
+              reverse): spec == AR at the verify width on every position,
+              launches as implied, the paged Scheduler at the first corner
+              under phase 7's rules; (d) ``grid_search`` on phase 19c's
+              trained SMOKE Llama as ``examples/acceptance_sweep.py`` runs
+              it (s_w 10, s_kv 1, 2 eval prompts x 12 new): 48 probes,
+              each spec == AR at the verify width, the ranked table; (e)
+              Fig. 6's entropy and unary code length of its weights and
+              K/V, card against CPU within 1e-5;
+21. report  — ``kernels: [...]``, one JSON line per the kernels table,
               and the last line ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 4b, 4c, 7-20 (4b and 4c read phase 6's
-prompts); ``--phase 18`` (or 19) runs phases 1, 2 and that phase alone (no
-report).
+Phases run in the order 1-6, 4b, 4c, 7-21 (4b and 4c read phase 6's
+prompts); ``--phase 18``, 19 or 20 runs phases 1, 2 and that phase alone
+(no report; 20 trains phase 19c's SMOKE Llama first).
 Phases 6, 7, 9, 10, 12, 13, each run of 14, the first of each pair in 15
 and the Engine runs of 16-19 set every kernel's launch count to 0 before
 their run and check it after against what the passes imply (the C-1 runs
@@ -4824,34 +4850,19 @@ def train_depth_phase(args) -> dict:
     return {"cos": cos, "accum_bitwise": bitwise, **smoke}
 
 
-def train_serve_phase(args, main: dict | None) -> dict:
-    """Phase 19c: the SMOKE Llama trained on the card with the reference's
-    recipe (``benchmarks/common.py``: 300 steps, lr 1e-3, warm-up 20, seq
-    64, batch 8, seed 0; the mean of the last five losses more than 0.3
-    below the first five's); params + fp32 moments saved and restored bit
-    for bit; ``launch/train.run --device cuda --fail-at-step 6`` ending
-    with an uninterrupted run's parameters bit for bit; then the trained
-    weights packed in Cassandra-1 (γ=3) and served on the reference's
-    ``eval_prompts`` (4 x 24 tokens of the stream at step 12345, seed 7) x
-    32 new: phase 6's Engine gates exact (spec == AR at the verify width
-    on every position, launches as the passes imply), the paged
-    ``Scheduler`` with the attention kernels on (every request its tokens,
-    launches as phase 7's rule, tokens equal to the Engine's under the
-    near-tie rule on >= 90% of positions), and acceptance greedy and at
-    T = 1.0 beside phase 6's random-weight acceptance."""
-    import shutil
-
+def train_smoke(tag: str) -> dict:
+    """The SMOKE Llama trained on the card with the reference's recipe
+    (``SMOKE_RECIPE``: ``benchmarks/common.py``'s 300 steps, lr 1e-3,
+    warm-up 20, seq 64, batch 8, seed 0; fp32 moments); fails unless the
+    mean of the last five losses is more than 0.3 below the first five's.
+    Returns the config, the trained parameters and their optimizer state
+    on the card, the two means and the wall."""
     import numpy as np
     import torch
-    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
-    from repro_torch.core.format import CassandraConfig
-    from repro_torch.core.packing import format_params
     from repro_torch.data.pipeline import DataConfig, _one_batch
-    from repro_torch.launch import train as TR
     from repro_torch.models import model as M
     from repro_torch.models.layers import Runtime
-    from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.training import optim as O
     from repro_torch.training import trainer as T
 
@@ -4875,13 +4886,57 @@ def train_serve_phase(args, main: dict | None) -> dict:
     losses = torch.stack(losses).cpu().numpy()
     wall = time.perf_counter() - t0
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
-    say(f"[train-serve] SMOKE Llama, {r['steps']} steps on the card "
+    say(f"[{tag}] SMOKE Llama, {r['steps']} steps on the card "
         f"(lr {r['lr']}, warm-up {r['warmup']}, {r['batch']} x {r['seq']} "
         f"tokens): loss {first:.4f} -> {last:.4f} (drop {first - last:.4f}, "
         f"limit > 0.3); {wall:.1f} s, {wall * 1e3 / r['steps']:.1f} ms a "
         f"step")
     if not (np.isfinite(losses).all() and last < first - 0.3):
-        fail(f"train-serve: loss {first} -> {last}")
+        fail(f"{tag}: loss {first} -> {last}")
+    return {"cfg": cfg, "params": params, "opt": opt, "first": first,
+            "last": last, "wall": wall}
+
+
+def eval_prompt(cfg, n: int = 4):
+    """The reference's ``eval_prompts`` (``benchmarks/common.py``): the
+    data stream's batch at step 12345 from seed 7, its first 24 tokens, on
+    the card (the first ``n`` of 4 rows)."""
+    from repro_torch.data.pipeline import DataConfig, _one_batch
+    edcfg = DataConfig(vocab_size=cfg.vocab_size,
+                       seq_len=SMOKE_RECIPE["seq"], global_batch=4, seed=7)
+    return _one_batch(edcfg, 12345, "cuda")["tokens"][:n, :24].contiguous()
+
+
+def train_serve_phase(args, main: dict | None) -> dict:
+    """Phase 19c: the SMOKE Llama trained on the card with the reference's
+    recipe (``benchmarks/common.py``: 300 steps, lr 1e-3, warm-up 20, seq
+    64, batch 8, seed 0; the mean of the last five losses more than 0.3
+    below the first five's); params + fp32 moments saved and restored bit
+    for bit; ``launch/train.run --device cuda --fail-at-step 6`` ending
+    with an uninterrupted run's parameters bit for bit; then the trained
+    weights packed in Cassandra-1 (γ=3) and served on the reference's
+    ``eval_prompts`` (4 x 24 tokens of the stream at step 12345, seed 7) x
+    32 new: phase 6's Engine gates exact (spec == AR at the verify width
+    on every position, launches as the passes imply), the paged
+    ``Scheduler`` with the attention kernels on (every request its tokens,
+    launches as phase 7's rule, tokens equal to the Engine's under the
+    near-tie rule on >= 90% of positions), and acceptance greedy and at
+    T = 1.0 beside phase 6's random-weight acceptance."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.format import CassandraConfig
+    from repro_torch.core.packing import format_params
+    from repro_torch.launch import train as TR
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training import optim as O
+
+    r = SMOKE_RECIPE
+    trained = train_smoke("train-serve")
+    cfg, params, opt = trained["cfg"], trained["params"], trained["opt"]
+    first, last, wall = trained["first"], trained["last"], trained["wall"]
 
     work = ROOT / "build" / "phase19"
     shutil.rmtree(work, ignore_errors=True)
@@ -4916,9 +4971,7 @@ def train_serve_phase(args, main: dict | None) -> dict:
     cass = CassandraConfig(variant=1, gamma=3)
     with torch.no_grad():
         packed = format_params(params, cass)
-    edcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=r["seq"],
-                       global_batch=4, seed=7)
-    prompt = _one_batch(edcfg, 12345, "cuda")["tokens"][:, :24].contiguous()
+    prompt = eval_prompt(cfg)
     sargs = argparse.Namespace(requests=4, prompt_len=24, max_new=32)
     eng = main_phase(packed, cfg, cass, None, sargs, tag="trained",
                      exact=True, tokens=prompt)
@@ -4972,7 +5025,8 @@ def train_serve_phase(args, main: dict | None) -> dict:
         f"{eng['acceptance']:.3f} (Engine), {st['acceptance']:.3f} "
         f"(Scheduler), at T = 1.0 {sst['acceptance']:.3f}; phase 6's "
         f"random-weight Llama-3-8B greedy {rand}")
-    return {"first": first, "last": last, "wall": wall,
+    return {"first": first, "last": last, "wall": wall, "cfg": cfg,
+            "params": params, "prompt": prompt,
             "acceptance": eng["acceptance"],
             "sched_acceptance": st["acceptance"],
             "t1_acceptance": sst["acceptance"], "share": share}
@@ -4988,6 +5042,546 @@ def train_phase(args, main: dict | None) -> dict:
     torch.cuda.empty_cache()
     say(f"[train] phase 19 in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: format selection (paper Eq. 2, Fig. 6) over the paper's grid
+# ---------------------------------------------------------------------------
+
+GRID_PRUNES = (0.3, 0.4, 0.5, 0.6)         # core/dse.py's default grid
+GRID_TRUNCS = (0, 1, 2, 3, 4, 5)
+LAYER_MATRICES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                  ("attn", "wo"), ("ffn", "w_gate"), ("ffn", "w_up"),
+                  ("ffn", "w_down"))
+DSE_S_W, DSE_S_KV = 10.0, 1.0              # examples/acceptance_sweep.py
+DSE_NEW = 12
+STAT_TOL = 1e-5                            # Fig. 6's figures card vs CPU
+
+
+def _grid_cass(w=(0.4, 4), kv=(0.4, 4)):
+    from repro_torch.core.format import CassandraConfig
+    return CassandraConfig(variant=1, gamma=3, weight_prune=w[0],
+                           weight_trunc=w[1], kv_prune=kv[0],
+                           kv_trunc=kv[1])
+
+
+def grid_weights(layer: dict, gen) -> None:
+    """Phase 20a: one Llama-3-8B layer's seven matrices packed on the card
+    at every point of the grid (exp_bits 3). Per point and matrix:
+    ``draft_matmul``'s decoded weight (identity rows) bit for bit against
+    the plain draft view and y at M=4 within RTOL / ATOL;
+    ``target_decode`` bit for bit against ``target_weight_plain`` and the
+    bf16 weight; ``compression_summary``, whose ``spec_bytes`` must fall
+    strictly as the prune or the truncation rises; wk's packed leaves bit
+    for bit the CPU's packing of the same weight. Per point, the layer's
+    seven ``draft_matmul`` launches at M=4 by graph replay beside Eq. 2's
+    draft byte ratio (recorded, not gated), and its seven ``target_decode``
+    launches likewise."""
+    import torch
+    from repro_torch.core import format as fmt
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.kernels import unary_decode as UD
+
+    mats = [(nm, layer[grp][nm]) for grp, nm in LAYER_MATRICES]
+    eyes = {}
+    xs = {}
+    for _, w in mats:
+        n_in = w.shape[0]
+        if n_in not in eyes:
+            eyes[n_in] = torch.eye(n_in, dtype=torch.bfloat16, device="cuda")
+            xs[n_in] = torch.randn((4, n_in), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+    wk_cpu = layer["attn"]["wk"].cpu()
+    rows = []
+    for p in GRID_PRUNES:
+        for t in GRID_TRUNCS:
+            cass = _grid_cass(w=(p, t))
+            spec_b = verif_b = orig = 0
+            err, ops_all, per_mat, packs = 0.0, [], {}, []
+            for nm, w in mats:
+                shape = tuple(w.shape)
+                spec, verif = fmt.format_weight(w, None, cass)
+                ops = DM.prepare_draft_operands(spec, cass, shape)
+                block = cass.weight_block(shape[0])
+                kw = dict(block=block, keep=cass.weight_keep(block),
+                          trunc=t, exp_bits=cass.exp_bits)
+                args = [ops[k] for k in ("bitmap", "signmant", "exp3",
+                                         "emax", "book")]
+                got = DM.draft_matmul(eyes[shape[0]], *args, **kw).to(
+                    torch.bfloat16)
+                want = DM.draft_weight_plain(*args, **kw).contiguous()
+                if not torch.equal(got.view(torch.int16),
+                                   want.view(torch.int16)):
+                    fail(f"fmt-weights ({p}, {t}) {nm}: draft_matmul's "
+                         f"decoded weight differs from the plain draft view "
+                         f"in {int((got != want).sum())} values")
+                del got, want
+                x = xs[shape[0]]
+                y = DM.draft_matmul(x, *args, **kw)
+                y_plain = DM.draft_matmul_plain(x, *args, **kw)
+                if not (torch.isfinite(y).all() and torch.allclose(
+                        y, y_plain, rtol=RTOL, atol=ATOL)):
+                    fail(f"fmt-weights ({p}, {t}) {nm}: y differs from the "
+                         f"plain version by {(y - y_plain).abs().max()}")
+                err = max(err, float((y - y_plain).abs().max()))
+                tv = UD.target_decode(spec, verif, cass, shape)
+                chain = fmt.target_weight_plain(spec, verif, cass, shape).T
+                if not torch.equal(tv.view(torch.int16),
+                                   chain.view(torch.int16)):
+                    fail(f"fmt-weights ({p}, {t}) {nm}: target_decode "
+                         f"differs from the plain chain")
+                if not torch.equal(tv.T.view(torch.int16),
+                                   w.view(torch.int16)):
+                    fail(f"fmt-weights ({p}, {t}) {nm}: the target view "
+                         f"differs from the bf16 weight in "
+                         f"{int((tv.T != w).sum())} values")
+                del tv, chain
+                summ = fmt.compression_summary(spec, verif, w.numel() * 2)
+                per_mat[nm] = summ["spec_bytes"]
+                spec_b += summ["spec_bytes"]
+                verif_b += summ["verif_bytes"]
+                orig += w.numel() * 2
+                if nm == "wk":
+                    cs, cv = fmt.format_weight(wk_cpu, None, cass)
+                    if not (_same_bits(_tree_to(spec, "cpu"), cs)
+                            and _same_bits(_tree_to(verif, "cpu"), cv)):
+                        fail(f"fmt-weights ({p}, {t}) wk: the card's packed "
+                             f"leaves differ from the CPU's packing")
+                ops_all.append((x, args, kw))
+                packs.append((spec, verif, shape))
+                del spec, verif, ops
+            torch.cuda.synchronize()
+
+            def layer_draft():
+                for x, args, kw in ops_all:
+                    DM.draft_matmul(x, *args, **kw)
+
+            def layer_target():
+                for spec, verif, shape in packs:
+                    UD.target_decode(spec, verif, cass, shape)
+            us = graph_ms(layer_draft, 10) * 1e3
+            td_us = graph_ms(layer_target, 5) * 1e3
+            rows.append({"p": p, "t": t, "keep": cass.weight_keep(512),
+                         "spec_bytes": spec_b, "verif_bytes": verif_b,
+                         "orig": orig, "per_mat": per_mat, "us": us,
+                         "td_us": td_us, "eq2": (1 - p) * (16 - t) / 16,
+                         "err": err})
+            del ops_all, packs
+            torch.cuda.empty_cache()
+    by = {(r["p"], r["t"]): r for r in rows}
+    for key in ("spec_bytes",) + tuple(nm for _, nm in LAYER_MATRICES):
+        def val(r):
+            return r["spec_bytes"] if key == "spec_bytes" else \
+                r["per_mat"][key]
+        for p in GRID_PRUNES:
+            seq = [val(by[p, t]) for t in GRID_TRUNCS]
+            if any(a <= b for a, b in zip(seq, seq[1:])):
+                fail(f"fmt-weights: {key} spec bytes at prune {p} do not "
+                     f"fall strictly with the truncation: {seq}")
+        for t in GRID_TRUNCS:
+            seq = [val(by[p, t]) for p in GRID_PRUNES]
+            if any(a <= b for a, b in zip(seq, seq[1:])):
+                fail(f"fmt-weights: {key} spec bytes at truncation {t} do "
+                     f"not fall strictly with the prune: {seq}")
+    base = by[0.4, 4]
+    say(f"[fmt-weights] one Llama-3-8B layer's 7 matrices (wq, wk, wv, wo, "
+        f"w_gate, w_up, w_down; {base['orig'] / 1e6:.1f} MB bf16) packed on "
+        f"the card at the 24 points (exp_bits 3): draft_matmul's decoded "
+        f"weight and target_decode bit for bit against their plain "
+        f"versions, the target view the bf16 weights, wk's leaves the "
+        f"CPU's, at every point; y within rtol {RTOL} / atol {ATOL}; "
+        f"spec bytes fall strictly along both axes. Per point (prune, "
+        f"trunc): keep of 512, compression_summary, the layer's 7 "
+        f"draft_matmul launches at M=4 (graph replay) against the paper "
+        f"default's, beside Eq. 2's draft byte ratio (1-p)(16-t)/16 "
+        f"against the default's, and its 7 target_decode launches:")
+    for r in rows:
+        say(f"[fmt-weights]   ({r['p']}, {r['t']}) keep {r['keep']}: spec "
+            f"{r['spec_bytes'] / 1e6:.2f} MB (draft_ratio "
+            f"{r['spec_bytes'] / r['orig']:.4f}, total_ratio "
+            f"{(r['spec_bytes'] + r['verif_bytes']) / r['orig']:.4f}); "
+            f"draft layer {r['us']:.1f} us ({r['us'] / base['us']:.3f} of "
+            f"the default) vs Eq. 2 {r['eq2']:.4f} ({r['eq2'] / base['eq2']:.3f}"
+            f"), spec bytes {r['spec_bytes'] / base['spec_bytes']:.3f}; "
+            f"target_decode layer {r['td_us']:.1f} us "
+            f"({r['td_us'] / base['td_us']:.3f}); max |y - plain| "
+            f"{r['err']:.3g}")
+    n = len(rows)
+    mx, my = (sum(r[k] for r in rows) / n for k in ("spec_bytes", "us"))
+    cov = sum((r["spec_bytes"] - mx) * (r["us"] - my) for r in rows)
+    sx = math.sqrt(sum((r["spec_bytes"] - mx) ** 2 for r in rows))
+    sy = math.sqrt(sum((r["us"] - my) ** 2 for r in rows))
+    say(f"[fmt-weights] draft time against spec bytes over the 24 points: "
+        f"correlation {cov / (sx * sy):.4f}; {min(r['us'] for r in rows):.1f}"
+        f"-{max(r['us'] for r in rows):.1f} us a layer")
+    del eyes, xs
+    torch.cuda.empty_cache()
+
+
+def _kv_store_checks(cass, x, d: int, book, tag: str, exact: bool):
+    """``kv_encode`` of (…, d) vectors on the card: every leaf bit for bit
+    against ``encode_store_plain``; ``kv_view``'s draft and target views
+    bit for bit against ``read_store_plain``; with ``exact`` the target
+    view is the input bit for bit. Returns the store and its mode-1
+    share."""
+    import torch
+    from repro_torch.kernels import kv_topk as KT
+    from repro_torch.kernels import unary_decode as UD
+    from repro_torch.serving import kvcache as KC
+    kw = dict(keep=cass.kv_keep(d), trunc=cass.kv_trunc,
+              exp_bits=cass.exp_bits)
+    spec, verif = KT.kv_encode(x, book[1], **kw)
+    store = {"spec": spec, "verif": verif}
+    if not _same_bits(store, KC.encode_store_plain(cass, x, d, book)):
+        fail(f"{tag}: kv_encode differs from the plain chain")
+    for view in ("draft", "target"):
+        got = UD.kv_view(spec, verif if view == "target" else None, book[0],
+                         d=d, **kw)
+        if not _same_bits(got, KC.read_store_plain(cass, store, d, view,
+                                                   book)):
+            fail(f"{tag}: kv_view's {view} view differs from the plain "
+                 f"chain")
+        if view == "target" and exact and not _same_bits(got, x):
+            fail(f"{tag}: the target view differs from the input")
+    return store, float(spec["exp_mode"].float().mean())
+
+
+def grid_kv(k, v, gen) -> None:
+    """Phase 20b: K and V of a prefill (B, S, Hkv, 128) at every point of
+    the grid, under ``default_kv_codebook`` and under the book
+    ``calibrate_kv_codebook`` makes from them: ``kv_encode`` and
+    ``kv_view`` (draft and target) bit for bit against the plain chains,
+    the target view the input; on a pool of those stores (block 16, a
+    zero trash block, ragged lengths with an empty row, an entry past
+    every length) ``decode_spec_pool`` bit for bit and
+    ``paged_gqa_packed`` at T = 1 and 4 within PAGED_RTOL / PAGED_ATOL of
+    its plain version; edge rows (phase 4c's) under the calibrated book,
+    exponents it never saw included, against the chains."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving import kvcache as KC
+
+    b, s, hkv, d = k.shape
+    g = 4
+    books = {"default": KC.default_kv_codebook("cuda"),
+             "calibrated": KC.calibrate_kv_codebook(torch.cat([k, v]))}
+    cal = books["calibrated"]
+    unseen = int((cal[1] == 255).sum())
+    edges = edge_rows(gen, 4096, d)
+    eexp = (edges.view(torch.int16).int() >> 7) & 0xFF
+    n_unseen = int((cal[1][eexp.long()] == 255).sum())
+    nb = b * s // BLOCK
+    pools = [torch.cat([torch.zeros((1, BLOCK, hkv, d), dtype=torch.bfloat16,
+                                    device="cuda"),
+                        x.reshape(nb, BLOCK, hkv, d)]) for x in (k, v)]
+    table = torch.full((b, s // BLOCK + 1), -1, dtype=torch.int32,
+                       device="cuda")
+    table[:, :-1] = (1 + torch.arange(nb, device="cuda")).reshape(b, -1)
+    lengths = torch.tensor([s, s, s - 51, 0][:b], dtype=torch.int32,
+                           device="cuda")
+    qs = {t: torch.randn((b, t, hkv, g, d), generator=gen,
+                         device="cuda").to(torch.bfloat16) for t in (1, 4)}
+    runs = modes = 0
+    worst = 0.0
+    times = []
+    for p in GRID_PRUNES:
+        for t in GRID_TRUNCS:
+            cass = _grid_cass(kv=(p, t))
+            kw = dict(d=d, keep=cass.kv_keep(d), trunc=t,
+                      exp_bits=cass.exp_bits)
+            for bname, book in books.items():
+                tag = f"fmt-kv ({p}, {t}) {bname} book"
+                specs = []
+                for nm, pool in zip("KV", pools):
+                    store, share = _kv_store_checks(cass, pool, d, book,
+                                                    f"{tag} {nm}", True)
+                    specs.append(store["spec"])
+                    modes += share
+                for sp in specs:
+                    if not _same_bits(
+                            PA.decode_spec_pool(sp, book[0], **kw),
+                            PA.decode_spec_pool_plain(sp, book[0], **kw)):
+                        fail(f"{tag}: decode_spec_pool differs from its "
+                             f"plain decode")
+                for t_q, q in qs.items():
+                    got = PA.paged_gqa_packed(q, *specs, table, lengths,
+                                              book[0], scale=d ** -0.5, **kw)
+                    want = PA.paged_gqa_packed_plain(
+                        q, *specs, table, lengths, book[0], scale=d ** -0.5,
+                        **kw)
+                    for a, b_ in zip(got, want):
+                        if not torch.allclose(a, b_, rtol=PAGED_RTOL,
+                                              atol=PAGED_ATOL):
+                            fail(f"{tag}: paged_gqa_packed T={t_q} differs "
+                                 f"from its plain version by "
+                                 f"{(a - b_).abs().max()}")
+                        worst = max(worst, float((a - b_).abs().max()))
+                if bname == "default":
+                    times.append((p, t, kw["keep"], *_kv_times(
+                        pools[0], specs, book, table, lengths, qs[1], kw)))
+                runs += 1
+                del specs
+            _kv_store_checks(cass, edges, d, cal,
+                             f"fmt-kv ({p}, {t}) edge rows", False)
+    torch.cuda.synchronize()
+    say(f"[fmt-kv] K and V of a {s}-token prefill ({b} x {s} x {hkv} x {d}) "
+        f"in a pool of {nb} blocks of {BLOCK} (+ the trash block), at the 24 "
+        f"KV points x 2 books ({runs} runs): kv_encode, kv_view (draft and "
+        f"target) and decode_spec_pool bit for bit against the plain "
+        f"chains, the target view the input; paged_gqa_packed at T = 1 and "
+        f"4 within rtol {PAGED_RTOL} / atol {PAGED_ATOL} (max abs err "
+        f"{worst:.3g}); mean mode-1 share {modes / (2 * runs):.4f}. The "
+        f"calibrated book leaves {unseen} of 256 exponents unseen (rank 255); "
+        f"{n_unseen} of the {edges.numel()} edge-row values (ties, +-0, NaN "
+        f"payloads, inf, subnormals, a 2^+-12 spread) carry one, and every "
+        f"edge row's store and views equal the chains at every point. Per "
+        f"point (prune, trunc), default book, us by graph replay: kv_encode "
+        f"of the K pool, kv_view's target and draft views of it, "
+        f"paged_gqa_packed at T = 1:")
+    for p, t, keep, enc, tv, dv, att in times:
+        say(f"[fmt-kv]   ({p}, {t}) keep {keep}: kv_encode {enc:.2f}  kv_view "
+            f"target {tv:.2f} / draft {dv:.2f}  paged_gqa_packed {att:.2f}")
+
+
+def _kv_times(pool, specs, book, table, lengths, q, kw) -> tuple:
+    """µs per launch by graph replay at one KV point: ``kv_encode`` of a
+    pool, ``kv_view``'s target and draft views of its store, and
+    ``paged_gqa_packed`` at T = 1 over the K and V stores."""
+    from repro_torch.kernels import kv_topk as KT
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import unary_decode as UD
+    ckw = {k: kw[k] for k in ("keep", "trunc", "exp_bits")}
+    spec, verif = KT.kv_encode(pool, book[1], **ckw)
+    d = kw["d"]
+    runs = (lambda: KT.kv_encode(pool, book[1], **ckw),
+            lambda: UD.kv_view(spec, verif, book[0], d=d, **ckw),
+            lambda: UD.kv_view(spec, None, book[0], d=d, **ckw),
+            lambda: PA.paged_gqa_packed(q, *specs, table, lengths, book[0],
+                                        scale=d ** -0.5, **kw))
+    return tuple(graph_ms(fn, 20) * 1e3 for fn in runs)
+
+
+def grid_corners(args, gen) -> None:
+    """Phase 20c: Llama-3-8B at full width, 2 layers, at two corners of
+    the grid (weights (0.3, 0) with KV (0.6, 5); weights (0.6, 5) with KV
+    (0.3, 0)): phase 6's Engine gates exact (spec == AR at the verify
+    width on every position, launches as the passes imply); at the first
+    corner the paged ``Scheduler`` with the attention kernels on, under
+    phase 7's rules (launches as the passes imply, first-token logits
+    within a tenth of the logit rms of the Engine's, tokens against the
+    Engine's under the near-tie rule)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import format_params
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    params = init_params(cfg, gen, device="cuda")
+    for i, (wf, kf) in enumerate((((0.3, 0), (0.6, 5)),
+                                  ((0.6, 5), (0.3, 0)))):
+        cass = _grid_cass(w=wf, kv=kf)
+        tag = f"fmt-corner w{wf} kv{kf}"
+        packed = format_params(params, cass)
+        eng = main_phase(packed, cfg, cass, gen, args, tag=tag, exact=True)
+        if i == 0:
+            prompt, n = eng["prompt"], args.max_new
+            reset_launches()
+            sched, tokens, first, _ = serve_paged(cfg, packed, cass, prompt,
+                                                  n, attn_kernel="on")
+            got, st = all_launches(), sched.summary()
+            del sched
+            expect = pass_launches("c1", st, cfg, cass, packed)
+            say(f"[{tag} sched] launches {got}; expected {expect}: "
+                f"{got == expect}")
+            if got != expect:
+                fail(f"{tag} sched: launches {got} != expected {expect}")
+            lg = eng["lg"].numpy()
+            gmax, _ = _logit_gap(first, lg)
+            lrms = float(np.sqrt((lg.astype(np.float64) ** 2).mean()))
+            if not gmax < 0.1 * lrms:
+                fail(f"{tag} sched: first-token logits differ by {gmax}")
+            compared, cut = tau_check(tokens, *eng["wide"], 2.0 * gmax, n,
+                                      what=f"{tag} sched")
+            say(f"[{tag} sched] first-token gap {gmax:.4g} (limit "
+                f"{0.1 * lrms:.4g}); tokens == the Engine's on {compared} of "
+                f"{tokens.size} positions under tau = {2 * gmax:.3g} (cut "
+                f"{cut}); acceptance {st['acceptance']:.3f}")
+        del packed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dse_search(trained: dict) -> None:
+    """Phase 20d: ``core/dse.grid_search`` on the trained SMOKE Llama with
+    its default grid and ``examples/acceptance_sweep.py``'s settings
+    (s_w 10, s_kv 1: 24 weight points with the KV at (0.4, 4), then 24 KV
+    points with the weights at their best; C-1, γ = 3, greedy, no
+    calibration, 2 eval prompts x 12 new). Every probe is an
+    ``Engine.generate`` whose tokens equal autoregressive steps at the
+    verify width on every position, its ``draft_matmul`` launches draft
+    passes x the packed matrices; every point's J equals ``objective`` on
+    the CPU for its alpha."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import dse
+    from repro_torch.core.packing import format_params
+    from repro_torch.kernels import draft_matmul as DM
+    from repro_torch.models import model as M
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg, params = trained["cfg"], trained["params"]
+    prompt = trained["prompt"][:2]
+    b, s = prompt.shape
+    probes = []
+
+    def acceptance_fn(w_p, w_t, kv_p, kv_t):
+        cass = _grid_cass(w=(w_p, w_t), kv=(kv_p, kv_t))
+        with torch.no_grad():
+            packed = format_params(params, cass)
+        eng = Engine(cfg, packed, cass=cass,
+                     ecfg=EngineConfig(gamma=3, greedy=True), device="cuda")
+        DM.draft_matmul.launches = 0
+        spec, st = eng.generate({"tokens": prompt}, max_new=DSE_NEW,
+                                speculative=True)
+        launches = DM.draft_matmul.launches
+        rt_t = dataclasses.replace(eng.rt, view="target")
+        cache = KC.init_cache(cfg, cass, b, s + DSE_NEW + 5, packed=True,
+                              device="cuda")
+        with torch.inference_mode():
+            lg, cache = M.forward_prefill(rt_t, packed, {"tokens": prompt},
+                                          cache)
+            ar, _ = ar_steps(rt_t, packed, cache, lg[:, -1], DSE_NEW, 4)
+        if not torch.equal(spec[:, :DSE_NEW].to(torch.int32),
+                           ar.to(torch.int32)):
+            fail(f"dse ({w_p}, {w_t}, {kv_p}, {kv_t}): spec tokens differ "
+                 f"from AR at the verify width")
+        if launches != st["draft_passes"] * draft_matrices(packed):
+            fail(f"dse ({w_p}, {w_t}, {kv_p}, {kv_t}): draft_matmul "
+                 f"launched {launches} times in {st['draft_passes']} passes")
+        probes.append((w_p, w_t, kv_p, kv_t, st["acceptance"],
+                       st["cycles"], launches))
+        return st["acceptance"]
+
+    t0 = time.perf_counter()
+    points = dse.grid_search(acceptance_fn, DSE_S_W, DSE_S_KV)
+    wall = time.perf_counter() - t0
+    if len(probes) != 48 or len(points) != 48:
+        fail(f"dse: {len(probes)} probes, {len(points)} points (expected 48)")
+    for pt in points:
+        j = dse.objective(pt.alpha, DSE_S_W, DSE_S_KV, pt.weight_prune,
+                          pt.weight_trunc, pt.kv_prune, pt.kv_trunc)
+        if j != pt.objective:
+            fail(f"dse: J {pt.objective} != objective on the CPU {j}")
+    say(f"[dse] Eq. 2 grid search on the trained SMOKE Llama (s_w "
+        f"{DSE_S_W}, s_kv {DSE_S_KV}: the weight term first, then the KV "
+        f"term at the weights' best): {len(probes)} probes, each an "
+        f"Engine.generate on {b} eval prompts x {DSE_NEW} new, spec == AR "
+        f"at the verify width on every position, launches as the passes "
+        f"imply; every J equal to objective() on the CPU; {wall:.1f} s. "
+        f"Ranked (w_p, w_t, kv_p, kv_t): alpha, J, draft_ratio:")
+    for i, pt in enumerate(points):
+        say(f"[dse]   {i + 1:2d}. ({pt.weight_prune}, {pt.weight_trunc}, "
+            f"{pt.kv_prune}, {pt.kv_trunc}): alpha {pt.alpha:.4f}  J "
+            f"{pt.objective:.6f}  draft_ratio {pt.draft_ratio:.4f}")
+
+
+def _bf16_leaves(tree, min_size: int = 4096) -> list:
+    """Every bf16 leaf of at least ``min_size`` values, flattened, in tree
+    order (``benchmarks/entropy.py``'s ``_collect_weights``)."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    return [t.reshape(-1) for t in tree_leaves(tree)
+            if t.dtype == torch.bfloat16 and t.numel() >= min_size]
+
+
+def fig6_stats(trained: dict) -> None:
+    """Phase 20e: Fig. 6 on the trained SMOKE Llama by
+    ``benchmarks/entropy.py``'s procedure: its bf16 leaves of at least
+    4096 values, and K/V from a plain prefill of 2 eval prompts, zeros
+    dropped; ``shannon_entropy`` and ``avg_code_bits`` (under each
+    sample's own ``build_codebook``) on the card and on the CPU, equal
+    within STAT_TOL."""
+    import torch
+    from repro_torch.core import bitops, coding
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving import kvcache as KC
+
+    cfg, params = trained["cfg"], trained["params"]
+    prompt = trained["prompt"][:2]
+    cache = KC.init_cache(cfg, None, 2, prompt.shape[1] + 8, packed=False,
+                          device="cuda")
+    with torch.inference_mode():
+        _, cache = M.forward_prefill(Runtime(cfg=cfg), params,
+                                     {"tokens": prompt}, cache)
+    kv = [e[nm].reshape(-1) for g in cache["dec"] for e in g.values()
+          for nm in ("k", "v", "c", "kr") if nm in e]
+    for name, data in (("weights", torch.cat(_bf16_leaves(params))),
+                       ("KV", torch.cat(kv))):
+        data = data[data != 0]
+        card, cpu = ((float(coding.shannon_entropy(exps)),
+                      float(coding.avg_code_bits(
+                          exps, coding.build_codebook(exps)[1])))
+                     for exps in (bitops.split_fields(x)[1]
+                                  for x in (data, data.cpu())))
+        gap = max(abs(a - b) for a, b in zip(card, cpu))
+        say(f"[fig6] {name} ({data.numel()} nonzero values): entropy "
+            f"{card[0]:.5f} bits (CPU {cpu[0]:.5f}), unary code "
+            f"{card[1]:.5f} bits a value (CPU {cpu[1]:.5f}); card vs CPU "
+            f"{gap:.3g} (limit "
+            f"{STAT_TOL}). The paper's figures (Fig. 6, trained 4-8B "
+            f"models): entropy ~2.6 (weights) / ~2.7 (KV) bits, unary "
+            f"code 2.85 bits")
+        if not gap <= STAT_TOL:
+            fail(f"fig6: {name} statistics differ card vs CPU by {gap}")
+
+
+def format_selection_phase(args, trained: dict | None) -> None:
+    """Phase 20, from generators of its own (``--seed`` + 70): (a) and (b)
+    on one full-width Llama-3-8B layer and its K/V, (c) at 2 layers, (d)
+    and (e) on phase 19c's trained SMOKE Llama (trained here when phase
+    19 did not run)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 70)
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=1)
+    params = init_params(cfg, gen, device="cuda")
+    layer = {grp: {nm: params["dec"][0]["e0"][grp][nm]["w"][0]
+                   for g2, nm in LAYER_MATRICES if g2 == grp}
+             for grp in ("attn", "ffn")}
+    grid_weights(layer, gen)
+    ta = time.perf_counter()
+    prompt = torch.randint(0, cfg.vocab_size, (args.requests,
+                                               args.prompt_len),
+                           generator=gen, device="cuda").to(torch.int32)
+    k, v = layer0_kv(params, cfg, None, prompt)
+    del params, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid_kv(k, v, gen)
+    del k, v
+    tb = time.perf_counter()
+    grid_corners(args, gen)
+    tc = time.perf_counter()
+    if trained is None:
+        trained = train_smoke("fmt-train")
+        trained["prompt"] = eval_prompt(trained["cfg"])
+    td0 = time.perf_counter()
+    dse_search(trained)
+    td = time.perf_counter()
+    fig6_stats(trained)
+    say(f"[fmt] phase 20 in {time.perf_counter() - t0:.1f} s ((a) "
+        f"{ta - t0:.1f}, (b) {tb - ta:.1f}, (c) {tc - tb:.1f}, (d) "
+        f"{td - td0:.1f}, (e) {time.perf_counter() - td:.1f})")
+    torch.cuda.empty_cache()
 
 
 def run(args) -> None:
@@ -5030,8 +5624,8 @@ def run(args) -> None:
             if "registers" in line or "spill" in line:
                 say(f"[build]   {b.name}: {line.strip()}")
     if args.phase is not None:
-        (encdec_phase if args.phase == 18 else
-         lambda a: train_phase(a, None))(args)
+        {18: encdec_phase, 19: lambda a: train_phase(a, None),
+         20: lambda a: format_selection_phase(a, None)}[args.phase](args)
         say(f"[done] phase {args.phase} alone in "
             f"{time.perf_counter() - t_start:.1f} s (no kernels line: the "
             f"other phases did not run)")
@@ -5163,9 +5757,16 @@ def run(args) -> None:
     # 19. training: Llama-3-8B at full width (int8 moments, remat), at 2
     # layers and at SMOKE against the CPU; the SMOKE model trained, saved,
     # resumed and served through the Engine and the paged Scheduler
-    train_phase(args, main)
+    trained = train_phase(args, main)["serve"]
+    # 20. format selection: every kernel at every point of the paper's
+    # grid at full width, the grid's corners end to end, the Eq. 2 search
+    # and Fig. 6's statistics on phase 19c's trained SMOKE Llama
+    format_selection_phase(args, trained)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 20. report
+    # 21. report
     say('kernels: ["draft_matmul", "paged_gqa", "paged_gqa_packed", '
         '"paged_mla", "mx_decode", "kv_topk", "unary_decode", '
         '"target_decode", "mx_view", "kv_encode", "kv_view"]')
@@ -5286,7 +5887,7 @@ def main() -> None:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=32)
-    ap.add_argument("--phase", type=int, choices=[18, 19], default=None,
+    ap.add_argument("--phase", type=int, choices=[18, 19, 20], default=None,
                     help="run the device, build and this phase only (no "
                     "kernels or ok line)")
     run(ap.parse_args())

@@ -16,6 +16,12 @@ from a ``torch.Generator``, and Wanda calibration. Training: AdamW with
 fp32 or int8 moments, the chunked CE loss and its backward (autograd,
 optional remat), microbatch accumulation, int8 gradient compression, the
 synthetic data stream, checkpoints in the reference's format and the
-fault-tolerant trainer ``launch/train.py``. The sharding rules,
-``int8_psum`` and ``core/dse.py`` are not ported (ROADMAP Queue 1).
+fault-tolerant trainer ``launch/train.py``. Format selection: the
+paper's Eq. 2 grid search (``core/dse.py``), the exponent statistics of
+Fig. 6 (``coding.shannon_entropy`` / ``avg_code_bits``),
+``format.compression_summary`` and a calibrated KV codebook
+(``kvcache.calibrate_kv_codebook``). Not ported yet (ROADMAP Queue 1):
+the paper-figure drivers and examples (item 2), and ``sharding/rules.py``,
+``collectives.int8_psum`` and ``launch/mesh.py`` / ``dryrun.py`` /
+``roofline.py`` (item 4).
 """

@@ -36,6 +36,16 @@ _MODULES = {
 }
 
 
+# the reference's registry order: its first ten keys are the assigned
+# architectures, then the paper's own evaluation models
+ASSIGNED = ("qwen3-1.7b", "mistral-large-123b", "qwen2.5-3b",
+            "nemotron-4-15b", "falcon-mamba-7b", "phi-3-vision-4.2b",
+            "whisper-medium", "dbrx-132b", "deepseek-v3-671b",
+            "jamba-v0.1-52b")
+PAPER_MODELS = ("llama3-8b", "qwen3-4b")
+ALL_ARCHS = ASSIGNED + PAPER_MODELS
+
+
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")

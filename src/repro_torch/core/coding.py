@@ -69,6 +69,22 @@ def unary_encode_block(ranks: torch.Tensor, n_bits: int):
     return bits, ok
 
 
+def unary_decode_block(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Decode a unary bitstream (..., n_bits) of bools into uint8 ranks
+    (..., K): the reference's oracle. A stable argsort of ``~bits`` puts
+    the positions of the ones first, in order (then those of the zeros,
+    which a region with fewer than K ones reads as its later codes), and
+    ``rank_j = pos_j - pos_{j-1} - 1`` clipped to [0, MAX_RANK - 1]. The
+    serving paths decode through ``kernels/unary_decode.py`` instead; the
+    two agree on every region with at least K ones."""
+    notbits = (~bits.to(torch.bool)).to(torch.uint8)
+    positions = torch.argsort(notbits, dim=-1, stable=True)[..., :k].to(
+        torch.int32)
+    prev = torch.cat([torch.full_like(positions[..., :1], -1),
+                      positions[..., :-1]], dim=-1)
+    return (positions - prev - 1).clamp(0, MAX_RANK - 1).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # Mode 1: delta-from-block-max
 # ---------------------------------------------------------------------------
@@ -179,3 +195,23 @@ def decode_exponents(region: dict, exp_of_rank: torch.Tensor, k: int,
                                corr_bits=corr_bits)
     is_unary = (region["mode"] == 0)[..., None]
     return torch.where(is_unary, uexps, dexps).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Exponent statistics (paper Fig. 6)
+# ---------------------------------------------------------------------------
+
+def avg_code_bits(exps: torch.Tensor, rank_of_exp: torch.Tensor
+                  ) -> torch.Tensor:
+    """Average unary code length in bits a value (Fig. 6(b)), f32."""
+    ranks = rank_of_exp[exps.reshape(-1).to(torch.int64)]
+    return (ranks.to(torch.float32).clamp(max=MAX_RANK - 1) + 1.0).mean()
+
+
+def shannon_entropy(exps: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy in bits of the exponent distribution (Fig. 6(a)),
+    f32."""
+    counts = torch.bincount(exps.reshape(-1).to(torch.int64), minlength=256)
+    p = counts.to(torch.float32) / counts.sum().clamp(min=1).to(torch.float32)
+    logp = torch.log2(torch.where(p > 0, p, torch.ones_like(p)))
+    return -torch.where(p > 0, p * logp, torch.zeros_like(p)).sum()

@@ -446,3 +446,16 @@ def tree_nbytes(tree) -> int:
         return tree.numel() * tree.element_size()
     return 0
 
+
+def compression_summary(spec: dict, verif: dict, original_nbytes: int) -> dict:
+    """Bytes of the speculation and verification streams, and their ratios
+    to the original tensor's bytes (the draft pass reads ``spec_bytes``)."""
+    sb = tree_nbytes(spec)
+    vb = tree_nbytes(verif)
+    return {
+        "spec_bytes": sb,
+        "verif_bytes": vb,
+        "total_bytes": sb + vb,
+        "draft_ratio": sb / original_nbytes,
+        "total_ratio": (sb + vb) / original_nbytes,
+    }

@@ -56,7 +56,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, layer_groups
-from repro_torch.core import format as fmt
+from repro_torch.core import bitops, coding, format as fmt
 from repro_torch.core.format import CassandraConfig
 from repro_torch.kernels import kv_topk as KT
 from repro_torch.kernels import mx_decode as MXD
@@ -80,6 +80,15 @@ def default_kv_codebook(device="cpu"):
     rank_of_exp[exp_of_rank.to(torch.int64)] = torch.arange(
         256, device=device).clamp(max=255).to(torch.uint8)
     return exp_of_rank, rank_of_exp
+
+
+def calibrate_kv_codebook(kv_samples: torch.Tensor):
+    """Frequency-ranked ``(exp_of_rank, rank_of_exp)`` from calibration K/V
+    vectors (rounded to bf16); an exponent the samples never hold ranks
+    255, so a value with one takes its block to mode 1. It reaches a cache
+    through ``init_cache`` / ``init_paged_cache(codebook=)``."""
+    _, exps, _ = bitops.split_fields(kv_samples.to(torch.bfloat16))
+    return coding.build_codebook(exps)
 
 
 def cache_codebook(cache: dict):

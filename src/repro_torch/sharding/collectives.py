@@ -8,7 +8,8 @@ dequantized value, so error feedback happens through the optimizer state.
 A leaf of two or more axes is walked in slices of its leading axis, as
 the optimizer walks it (the blocks lie on the last axis, so the codes are
 the same). ``int8_psum`` waits for the sharding item (ROADMAP Queue 1
-item 5): one card has no reduction to run.
+item 4, with ``sharding/rules.py`` and ``launch/mesh.py``): one card has
+no reduction to run.
 """
 from __future__ import annotations
 

@@ -166,12 +166,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
 
 
 @pytest.mark.cuda
-def test_engine_on_card_spec_equals_ar_and_counts_launches(card):
+@pytest.mark.parametrize("fmt", [None, ((0.3, 0), (0.6, 5)),
+                                 ((0.6, 5), (0.3, 0))])
+def test_engine_on_card_spec_equals_ar_and_counts_launches(card, fmt):
     """Spec tokens equal the tokens of autoregressive steps run at the
     verify width (bit for bit: same widths, same sums), and the engine's
-    width-1 autoregressive tokens under the near-tie rule."""
+    width-1 autoregressive tokens under the near-tie rule; at the paper's
+    default format and at two corners of its grid ((weight prune, trunc),
+    (KV prune, trunc))."""
     cfg = get_config("llama3-8b", smoke=True)
     cass = CassandraConfig(variant=1, gamma=3)
+    if fmt is not None:
+        cass = CassandraConfig(variant=1, gamma=3, weight_prune=fmt[0][0],
+                               weight_trunc=fmt[0][1], kv_prune=fmt[1][0],
+                               kv_trunc=fmt[1][1])
     gen = torch.Generator(device=card).manual_seed(0)
     params = format_params(init_params(cfg, gen, device=card), cass)
     eng = Engine(cfg, params, cass=cass, ecfg=EngineConfig(gamma=3))
@@ -195,12 +203,15 @@ def test_engine_on_card_spec_equals_ar_and_counts_launches(card):
 # Paged attention kernels (paged_gqa, paged_gqa_packed)
 # ---------------------------------------------------------------------------
 
-def _paged_inputs(card, *, d, t, bs, seed, nb=24, b=4, hkv=2, g=4, mb=6):
+def _paged_inputs(card, *, d, t, bs, seed, nb=24, b=4, hkv=2, g=4, mb=6,
+                  cass=None, book=None):
     """Pools, a table with out-of-range entries and ragged lengths (one 0)
     on the card; the packed pools come from the port's encoder, half
-    their rows spread over 2^±20 (delta mode, escape codes)."""
+    their rows spread over 2^±20 (delta mode, escape codes). ``cass``
+    sets the KV format (the paper's default when None) and ``book`` the
+    codebook (``default_kv_codebook`` when None)."""
     from repro_torch.serving import kvcache as KC
-    cass = CassandraConfig()
+    cass = cass or CassandraConfig()
     gen = torch.Generator().manual_seed(seed)
 
     def vals():
@@ -210,7 +221,7 @@ def _paged_inputs(card, *, d, t, bs, seed, nb=24, b=4, hkv=2, g=4, mb=6):
         rows = torch.rand((nb, bs, hkv, 1), generator=gen) < 0.5
         return torch.where(rows, x * spread, x).to(torch.bfloat16)
 
-    book = KC.default_kv_codebook()
+    book = book or KC.default_kv_codebook()
     k, v = vals(), vals()
     ks = KC.encode_store(cass, k, d, book)["spec"]
     vs = KC.encode_store(cass, v, d, book)["spec"]
@@ -750,6 +761,13 @@ def test_c2_engine_and_scheduler_on_card(card):
 # ---------------------------------------------------------------------------
 
 KV_WIDTHS = [32, 64, 96, 128, 256, 512]     # 96: phi-3-vision's head_dim
+# ((kv_trunc, exp_bits), kv_prune): the paper's default, other widths,
+# nothing pruned, and the paper's grid away from its default (truncations
+# 1, 3 and 5: 7-, 5- and 3-bit sign|mantissa codes that straddle 32-bit
+# words; prunes 0.3 and 0.5: 96 and 64 of 128 kept)
+KV_FORMATS = [((4, 3), 0.4), ((0, 3), 0.4), ((7, 5), 0.6), ((4, 3), 0.0),
+              ((1, 3), 0.3), ((3, 3), 0.3), ((5, 3), 0.3), ((1, 3), 0.5),
+              ((3, 3), 0.5), ((5, 3), 0.5)]
 
 
 def _kv_rows(gen, rows, d):
@@ -778,10 +796,10 @@ def _kv_cass(d, fmt=(4, 3), prune=0.4):
 
 
 def _built_book(v, card):
-    from repro_torch.core import coding
-    exps = (v[12:].view(torch.int16).int() >> 7) & 0xFF
-    eor, roe = coding.build_codebook(exps.to(torch.uint8))
-    return eor.to(card), roe.to(card)
+    """The book ``calibrate_kv_codebook`` makes from the rows past the
+    kv_topk edge rows (exponents it never saw rank 255)."""
+    from repro_torch.serving import kvcache as KC
+    return tuple(t.to(card) for t in KC.calibrate_kv_codebook(v[12:]))
 
 
 def _same_tree(a, b):
@@ -796,8 +814,7 @@ def _same_tree(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt,prune", [((4, 3), 0.4), ((0, 3), 0.4),
-                                       ((7, 5), 0.6), ((4, 3), 0.0)])
+@pytest.mark.parametrize("fmt,prune", KV_FORMATS)
 @pytest.mark.parametrize("d", KV_WIDTHS)
 def test_kv_encode_matches_chain_on_card(card, d, fmt, prune):
     """Every leaf of the store bit for bit against the chain
@@ -840,8 +857,7 @@ def _random_store(store, gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arbitrary", [False, True])
-@pytest.mark.parametrize("fmt,prune", [((4, 3), 0.4), ((0, 3), 0.4),
-                                       ((7, 5), 0.6), ((4, 3), 0.0)])
+@pytest.mark.parametrize("fmt,prune", KV_FORMATS)
 @pytest.mark.parametrize("d", KV_WIDTHS)
 def test_kv_view_matches_chain_on_card(card, d, fmt, prune, arbitrary):
     """Draft and target views bit for bit against the chain
@@ -1059,7 +1075,10 @@ def test_target_decode_bitwise_on_card(card, n_in, n_out):
     (1024, 4, True, True, 0.4),          # raw pruned values
     (512, 4, True, False, 0.0),          # nothing pruned (keep == block)
     (256, 4, True, False, 0.4), (128, 4, True, False, 0.4),
-    (64, 4, True, False, 0.4), (32, 4, True, False, 0.5)])  # small blocks
+    (64, 4, True, False, 0.4), (32, 4, True, False, 0.5),   # small blocks
+    # the paper's grid away from (0.4, 4): keeps 352 and 256 of 512
+    *[(n, t, True, False, p) for n in (512, 4096) for p in (0.3, 0.5)
+      for t in (1, 3, 5)]])
 def test_target_decode_formats_on_card(card, n_in, trunc, outliers, raw,
                                        prune):
     from repro_torch.core import format as fmt
@@ -2259,3 +2278,115 @@ def test_checkpoint_bf16_byte_views_on_card(card, tmp_path):
     assert torch.equal(back["w"].view(torch.int16), w.view(torch.int16))
     assert torch.equal(back["s"], tree["s"])
     assert torch.equal(back["q"], tree["q"])
+
+
+# ---------------------------------------------------------------------------
+# Format selection: the paper's grid (prune 0.3-0.6, truncation 0-5)
+# ---------------------------------------------------------------------------
+
+# truncations 1, 3 and 5 give 7-, 5- and 3-bit sign|mantissa codes that
+# straddle 32-bit words; prunes 0.3 and 0.5 keep 352 and 256 of a 512-value
+# block (the KV kernels take these points through KV_FORMATS)
+GRID_POINTS = [(p, t) for p in (0.3, 0.5) for t in (1, 3, 5)]
+
+
+def _grid_cass(prune, trunc):
+    return CassandraConfig(variant=1, weight_prune=prune, weight_trunc=trunc,
+                           kv_prune=prune, kv_trunc=trunc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prune,trunc", GRID_POINTS)
+@pytest.mark.parametrize("n_in,n_out", [(1536, 1000), (4096, 520)])
+def test_draft_matmul_at_grid_points_on_card(card, n_in, n_out, prune,
+                                             trunc):
+    """The decoded weight, read back through identity rows, bit for bit
+    the plain draft view, and y within rtol 2e-2 / atol 1e-3 of the plain
+    version at several M, away from the paper's (0.4, 4)."""
+    cass = _grid_cass(prune, trunc)
+    gen = torch.Generator(device=card).manual_seed(n_in + trunc)
+    w = torch.randn((n_in, n_out), generator=gen, device=card).to(
+        torch.bfloat16)
+    spec, _ = format_weight(w, None, cass)
+    ops = DM.prepare_draft_operands(spec, cass, (n_in, n_out))
+    args = [ops[k] for k in ("bitmap", "signmant", "exp3", "emax", "book")]
+    block = cass.weight_block(n_in)
+    kw = dict(block=block, keep=cass.weight_keep(block), trunc=trunc,
+              exp_bits=cass.exp_bits)
+    assert kw["keep"] == {0.3: 352, 0.5: 256}[prune]
+    eye = torch.eye(n_in, dtype=torch.bfloat16, device=card)
+    got = DM.draft_matmul(eye, *args, **kw).to(torch.bfloat16)
+    want = DM.draft_weight_plain(*args, **kw).contiguous()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    for m in (1, 4, 17):
+        x = torch.randn((m, n_in), generator=gen, device=card).to(
+            torch.bfloat16)
+        torch.testing.assert_close(DM.draft_matmul(x, *args, **kw),
+                                   DM.draft_matmul_plain(x, *args, **kw),
+                                   rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("prune,trunc", [(0.3, 0), (0.6, 5), (0.5, 1),
+                                         (0.3, 3)])
+def test_paged_gqa_packed_at_grid_points_on_card(card, prune, trunc, t):
+    """The packed attention away from the paper's (keep 80, trunc 4): its
+    decode of the pools bit for bit, and (acc, m, l) within rtol 1e-4 /
+    atol 1e-5 of its plain version, under the default book and a book
+    calibrated on other vectors (values at exponents it never saw take
+    mode 1)."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving import kvcache as KC
+    cass = _grid_cass(prune, trunc)
+    for calibrated in (False, True):
+        book = None
+        if calibrated:
+            gen = torch.Generator().manual_seed(5)
+            book = KC.calibrate_kv_codebook(
+                torch.randn((64, 128), generator=gen) * 0.25)
+        q, _, _, ks, vs, table, length, eor, kw = _paged_inputs(
+            card, d=128, t=t, bs=16, seed=trunc + t, cass=cass, book=book)
+        assert kw["keep"] == cass.kv_keep(128) != 80
+        for sp in (ks, vs):
+            assert torch.equal(
+                PA.decode_spec_pool(sp, eor, **kw).view(torch.int16),
+                PA.decode_spec_pool_plain(sp, eor, **kw).view(torch.int16))
+        got = PA.paged_gqa_packed(q, ks, vs, table, length, eor,
+                                  scale=128 ** -0.5, **kw)
+        want = PA.paged_gqa_packed_plain(q, ks, vs, table, length, eor,
+                                         scale=128 ** -0.5, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_calibrated_book_on_card_equals_cpu_and_reaches_the_cache(card):
+    """``calibrate_kv_codebook`` on the card equals the CPU's bit for bit;
+    through ``init_cache(codebook=)`` the book is the cache's, and a store
+    encoded on the card with it (exponents it never saw included: mode 1)
+    reads back its vectors bit for bit."""
+    from repro_torch.serving import kvcache as KC
+    gen = torch.Generator().manual_seed(11)
+    samples = (torch.randn((256, 128), generator=gen) * 0.25).to(
+        torch.bfloat16)
+    cpu = KC.calibrate_kv_codebook(samples)
+    dev = KC.calibrate_kv_codebook(samples.to(card))
+    for a, b in zip(cpu, dev):
+        assert torch.equal(a, b.cpu())
+    cfg = get_config("llama3-8b", smoke=True)
+    cass = CassandraConfig(variant=1)
+    cache = KC.init_cache(cfg, cass, 2, 8, packed=True, codebook=dev,
+                          device=card)
+    book = KC.cache_codebook(cache)
+    assert torch.equal(book[1], dev[1]) and book[0].shape == (256,)
+    x = (torch.randn((2, 8, 128), generator=gen) * 0.25)
+    x[0, 0] *= 2.0 ** 40                       # exponents never sampled
+    x = x.to(torch.bfloat16).to(card)
+    store = KC.encode_store(cass, x, 128, book)
+    assert (store["spec"]["exp_mode"] == 1).any()
+    assert (store["spec"]["exp_mode"] == 0).any()
+    _same_tree(store, KC.encode_store_plain(cass, x, 128, book))
+    back = KC.read_store(cass, store, 128, "target", book)
+    assert torch.equal(back.view(torch.int16), x.view(torch.int16))
